@@ -1,0 +1,701 @@
+"""Dense-leaf BVH (+ two-level TLAS); counterpart of ``physically_based_ray_tracer_tpu/bvh/dense.py``.
+
+The host-side build is numpy and is carried over line for line, so the port
+builds tables byte-identical to the JAX package's (a test pins that). Only
+the container differs: ``DenseBVH`` holds torch tensors and moves with
+``.to(device)``.
+
+Layouts (shared with the traversal kernel, ``csrc/traverse_f32.cu``):
+  * ``nodes16`` (N*16,) f32, per node:
+      [c0min(3), c0max(3), c1min(3), c1max(3), child0, child1, pad, pad]
+    children stored as floats (exact for |code| < 2^24):
+      code >= 0            -> internal node index
+      code <  0, v=-(code+1):
+        v & 1 == 0         -> triangle leaf, v >> 1 = group*8 + log2(period)
+        v & 1 == 1         -> instance leaf, v >> 1 = instance id
+                              (RESTORE_ID is the kernel's restore sentinel)
+      code == ABSENT       -> no child in this slot (rejected by code: the
+                              min/max slab test is symmetric in lo/hi).
+  * ``groups`` (G*16, 128) f32: group g occupies rows [16g, 16g+16); rows
+    0..8 are v0.xyz, e1.xyz, e2.xyz, row 9 the primitive id as float (-1 for
+    padding). A leaf of k triangles is padded to c = 2^ceil(log2 k) slots and
+    the c-block is tiled across the 128 lanes; a GPU thread reads slots
+    0..c-1 only.
+  * ``inst16`` (I*16,) f32: [0:12] rows of the object-from-world 3x4
+    transform, [12] BLAS root node index. A single-level table carries a
+    1-float stub instead.
+  * ``prim_base`` (max(I,1),) i32: per-instance offset from mesh-local to
+    scene-global primitive ids.
+
+The bf16 leaf packing (``groups_bf``/``glo``/``pids_c``), ``refresh_tlas``
+and the native SBVH core are not ported: none is on the f32 path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+BINS = 8
+LEAF_W = 128          # triangle slots per leaf group (the TPU lane count)
+GROUP_ROWS = 16       # rows per group in the flat groups array (10 used)
+NODE_F = 16           # floats per node in nodes16
+INST_F = 16           # floats per instance in inst16
+RESTORE_ID = (1 << 22) - 1   # reserved instance id: ray-space restore pop
+ABSENT = -(1 << 30)          # child code of an absent slot (exact in f32)
+
+
+def _tri_code(g: int, log2c: int) -> float:
+    return float(-(2 * (g * 8 + log2c) + 1))
+
+
+def _inst_code(iid: int) -> float:
+    return float(-(2 * iid + 2))
+
+
+def stack_need(nodes16: np.ndarray, inst16: np.ndarray) -> int:
+    """Largest traversal-stack occupancy any ray can reach on this table.
+
+    A ray pushes at most one entry (the far child) per internal node on its
+    current root-to-node path, plus one restore sentinel per instance entry,
+    so the bound is the deepest such path (counted exactly by walking the
+    tree, following instance leaves into their BLAS roots)."""
+    nodes = np.asarray(nodes16, np.float32).reshape(-1, NODE_F)
+    inst = np.asarray(inst16, np.float32)
+    two_level = inst.shape[0] >= INST_F
+    need = 0
+    stack = [(0, 1)]          # (node, entries pushed on the path incl. node)
+    while stack:
+        n, d = stack.pop()
+        need = max(need, d)
+        for side in range(2):
+            code = int(np.rint(nodes[n, 12 + side]))
+            if code == ABSENT:
+                continue
+            if code >= 0:
+                stack.append((code, d + 1))
+            elif two_level and (-(code + 1)) % 2 == 1:
+                iid = (-(code + 1)) // 2
+                root = int(np.rint(inst[iid * INST_F + 12]))
+                stack.append((root, d + 2))   # sentinel + BLAS root
+    return need
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseBVH:
+    """Device-resident dense-leaf BVH (see module docstring for layouts)."""
+
+    nodes16: torch.Tensor    # (N*16,) f32
+    groups: torch.Tensor     # (G*16, 128) f32
+    inst16: torch.Tensor     # (I*16,) f32, or a (1,) stub when single-level
+    prim_base: torch.Tensor  # (max(I,1),) i32
+    world_lo: torch.Tensor   # (3,) f32 root bounds (Morton ray sorting)
+    world_hi: torch.Tensor   # (3,) f32
+    stack_need: int          # stack_need() of these tables
+
+    @staticmethod
+    def from_numpy(nodes16, groups, inst16, prim_base, world_lo, world_hi,
+                   device="cpu") -> "DenseBVH":
+        def t(x, dtype):
+            return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+        return DenseBVH(
+            nodes16=t(nodes16, np.float32), groups=t(groups, np.float32),
+            inst16=t(inst16, np.float32), prim_base=t(prim_base, np.int32),
+            world_lo=t(world_lo, np.float32), world_hi=t(world_hi, np.float32),
+            stack_need=stack_need(nodes16, inst16))
+
+    def to(self, device) -> "DenseBVH":
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(device)
+                     for f in dataclasses.fields(self)
+                     if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes16.shape[0] // NODE_F
+
+    @property
+    def n_groups(self) -> int:
+        return self.groups.shape[0] // GROUP_ROWS
+
+    @property
+    def n_instances(self) -> int:
+        return self.inst16.shape[0] // INST_F
+
+    @property
+    def two_level(self) -> bool:
+        return self.inst16.shape[0] >= INST_F
+
+
+class TLASMeta(NamedTuple):
+    """Host-side constants of a two-level build."""
+
+    tlas_cap: int
+    inst_mesh: np.ndarray
+    blas_root: np.ndarray
+    blas_lo: np.ndarray
+    blas_hi: np.ndarray
+
+
+def _surface_area(bmin, bmax):
+    e = np.maximum(bmax - bmin, 0.0)
+    return 2.0 * (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2]
+                  + e[..., 2] * e[..., 0])
+
+
+def _build_core(tri: np.ndarray, leaf_target: int):
+    """Binned-SAH build with fat dense leaves: a segment becomes a leaf group
+    once count <= leaf_target. Returns (nodes (n,16), leaf_segments, depth,
+    root_lo, root_hi)."""
+    T = tri.shape[0]
+    leaf_target = min(leaf_target, LEAF_W)
+
+    bmin = tri.min(axis=1)
+    bmax = tri.max(axis=1)
+    centroid = (bmin + bmax) * 0.5
+    order = np.arange(T, dtype=np.int64)
+
+    max_nodes = max(4 * (T // max(leaf_target // 4, 1) + 2), 8)
+    nodes = np.zeros((max_nodes, NODE_F), np.float32)
+    nodes[:, 12:14] = ABSENT
+    n_nodes = 1
+    leaf_segments: list[np.ndarray] = []
+
+    def seg_bounds(seg):
+        return bmin[seg].min(axis=0), bmax[seg].max(axis=0)
+
+    def make_leaf(parent, side, s, e):
+        g = len(leaf_segments)
+        seg = order[s:e].copy()
+        leaf_segments.append(seg)
+        log2c = max(int(np.ceil(np.log2(max(len(seg), 1)))), 0)
+        nodes[parent, 12 + side] = _tri_code(g, log2c)
+
+    def choose_split(s, e):
+        """Best binned-SAH split of order[s:e]; returns mid or None."""
+        seg = order[s:e]
+        c = centroid[seg]
+        cmin = c.min(axis=0)
+        cmax = c.max(axis=0)
+        ext = cmax - cmin
+        if not np.any(ext > 1e-12):
+            return s + (e - s) // 2 if (e - s) > LEAF_W else None
+        scale = np.where(ext > 1e-12, BINS * 0.9999 / np.where(ext > 0, ext, 1.0), 0.0)
+        bin_id = np.clip(((c - cmin) * scale).astype(np.int32), 0, BINS - 1)
+        best = (np.inf, -1, -1)
+        for ax in range(3):
+            if ext[ax] <= 1e-12:
+                continue
+            ids = bin_id[:, ax]
+            counts = np.bincount(ids, minlength=BINS)
+            bb_min = np.full((BINS, 3), np.inf, np.float32)
+            bb_max = np.full((BINS, 3), -np.inf, np.float32)
+            np.minimum.at(bb_min, ids, bmin[seg])
+            np.maximum.at(bb_max, ids, bmax[seg])
+            lmin = np.minimum.accumulate(bb_min, axis=0)
+            lmax = np.maximum.accumulate(bb_max, axis=0)
+            rmin = np.minimum.accumulate(bb_min[::-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(bb_max[::-1], axis=0)[::-1]
+            lcnt = np.cumsum(counts)
+            rcnt = np.cumsum(counts[::-1])[::-1]
+            la = _surface_area(lmin[:-1], lmax[:-1])
+            ra = _surface_area(rmin[1:], rmax[1:])
+            cost = la * lcnt[:-1] + ra * rcnt[1:]
+            cost = np.where((lcnt[:-1] == 0) | (rcnt[1:] == 0), np.inf, cost)
+            b = int(np.argmin(cost))
+            if cost[b] < best[0]:
+                best = (float(cost[b]), ax, b)
+        if best[1] < 0:
+            return s + (e - s) // 2 if (e - s) > LEAF_W else None
+        ax, b = best[1], best[2]
+        go_left = bin_id[:, ax] <= b
+        left = seg[go_left]
+        right = seg[~go_left]
+        if len(left) == 0 or len(right) == 0:
+            return s + (e - s) // 2
+        order[s:s + len(left)] = left
+        order[s + len(left):e] = right
+        return s + len(left)
+
+    def alloc():
+        nonlocal n_nodes
+        i = n_nodes
+        n_nodes += 1
+        return i
+
+    depth_max = 1
+    stack = [(0, T, -1, -1, 1)]      # (start, end, parent, side, depth)
+    while stack:
+        s, e, parent, side, dep = stack.pop()
+        depth_max = max(depth_max, dep)
+        if (e - s) <= leaf_target:
+            if parent < 0:
+                lo, hi = seg_bounds(order[s:e])
+                nodes[0, 0:3] = lo
+                nodes[0, 3:6] = hi
+                make_leaf(0, 0, s, e)
+            else:
+                make_leaf(parent, side, s, e)
+            continue
+        mid = choose_split(s, e)
+        if mid is None or mid <= s or mid >= e:
+            if parent < 0:
+                lo, hi = seg_bounds(order[s:e])
+                nodes[0, 0:3] = lo
+                nodes[0, 3:6] = hi
+                make_leaf(0, 0, s, e)
+            else:
+                make_leaf(parent, side, s, e)
+            continue
+        node = 0 if parent < 0 else alloc()
+        if parent >= 0:
+            nodes[parent, 12 + side] = float(node)
+        lmin_, lmax_ = seg_bounds(order[s:mid])
+        rmin_, rmax_ = seg_bounds(order[mid:e])
+        nodes[node, 0:3] = lmin_
+        nodes[node, 3:6] = lmax_
+        nodes[node, 6:9] = rmin_
+        nodes[node, 9:12] = rmax_
+        stack.append((s, mid, node, 0, dep + 1))
+        stack.append((mid, e, node, 1, dep + 1))
+
+    if not all(len(s) <= LEAF_W for s in leaf_segments):
+        raise AssertionError("a leaf exceeds one group")
+    if int(np.rint(nodes[0, 13])) == ABSENT:      # single-leaf root
+        root_lo, root_hi = nodes[0, 0:3].copy(), nodes[0, 3:6].copy()
+    else:
+        root_lo = np.minimum(nodes[0, 0:3], nodes[0, 6:9])
+        root_hi = np.maximum(nodes[0, 3:6], nodes[0, 9:12])
+    return nodes[:n_nodes], leaf_segments, depth_max, root_lo, root_hi
+
+
+def _pack_groups(tri: np.ndarray, segments: list[np.ndarray]) -> np.ndarray:
+    """Component-major leaf groups with cyclic power-of-two replication."""
+    v0 = tri[:, 0]
+    G = max(len(segments), 1)
+    groups = np.zeros((G * GROUP_ROWS, LEAF_W), np.float32)
+    groups[9::GROUP_ROWS, :] = -1.0   # prim row default: padding
+    for g, seg in enumerate(segments):
+        k = len(seg)
+        r = g * GROUP_ROWS
+        c = 1 << max(int(np.ceil(np.log2(max(k, 1)))), 0)
+        data = np.zeros((10, c), np.float32)
+        data[9, :] = -1.0
+        p0 = v0[seg]
+        data[0:3, :k] = p0.T
+        data[3:6, :k] = (tri[seg, 1] - p0).T
+        data[6:9, :k] = (tri[seg, 2] - p0).T
+        data[9, :k] = seg.astype(np.float32)
+        groups[r:r + 10, :] = np.tile(data, (1, LEAF_W // c))
+    return groups
+
+
+# single-level stub: shorter than one INST_F row, so the traversal runs
+# without any instance machinery
+_NO_INST = np.zeros((1,), np.float32)
+
+# Leaf shaping (CombineLeafs/SplitLeafs analogue) driven by the TPU kernel's
+# cost model: a leaf visit costs a fixed overhead plus ceil_pow2(count) sweep
+# iterations, a node step ~C_NODE of those units. Kept as is so the port
+# builds the same tables; a cost model fitted to the GPU kernel is later work.
+C_NODE = 1.5
+C_LEAF = 3.0
+
+
+def _pow2(k: int) -> int:
+    return 1 << max(int(np.ceil(np.log2(max(k, 1)))), 0)
+
+
+def _sa(lo, hi):
+    e = np.maximum(hi - lo, 0.0)
+    return float(2.0 * (e[0] * e[1] + e[1] * e[2] + e[2] * e[0]))
+
+
+def dense_sweep_cost(nodes: np.ndarray, segments: list[np.ndarray],
+                     bmin: np.ndarray, bmax: np.ndarray) -> float:
+    """Expected sweep units per root-entering ray under the SAH area measure.
+    ``bmin``/``bmax`` are accepted for signature parity and unused."""
+    del bmin, bmax
+    root_lo = np.minimum(nodes[0, 0:3], nodes[0, 6:9])
+    root_hi = np.maximum(nodes[0, 3:6], nodes[0, 9:12])
+    return _cost_walk(nodes, segments, _sa(root_lo, root_hi))
+
+
+def _cost_walk(nodes, segments, area_root):
+    """Sum over nodes/leaves of P(visit) * step cost (iterative)."""
+    total = 0.0
+    stack = [(0, None)]
+    while stack:
+        i, box = stack.pop()
+        if box is None:
+            lo = np.minimum(nodes[i, 0:3], nodes[i, 6:9])
+            hi = np.maximum(nodes[i, 3:6], nodes[i, 9:12])
+        else:
+            lo, hi = box
+        total += C_NODE * _sa(lo, hi) / area_root
+        for side in range(2):
+            code = int(np.rint(nodes[i, 12 + side]))
+            if code == ABSENT:
+                continue
+            clo = nodes[i, 6 * side:6 * side + 3]
+            chi = nodes[i, 6 * side + 3:6 * side + 6]
+            if code >= 0:
+                stack.append((code, (clo, chi)))
+            else:
+                v = -(code + 1)
+                if v % 2 == 1:
+                    continue   # instance leaf: costed in its BLAS
+                g = (v // 2) // 8
+                total += (_sa(clo, chi) / area_root
+                          * (C_LEAF + _pow2(len(segments[g]))))
+    return total
+
+
+def shape_dense_leaves(tri: np.ndarray, nodes: np.ndarray,
+                       segments: list[np.ndarray], min_leaf: int = 24,
+                       hysteresis: float = 0.9,
+                       ) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Cost-driven leaf merge/split post-pass. Exact: traversal results are
+    unchanged for any tree shape; only the expected sweep cost moves."""
+    bmin = tri.min(axis=1)
+    bmax = tri.max(axis=1)
+
+    def seg_bounds(seg):
+        return bmin[seg].min(axis=0), bmax[seg].max(axis=0)
+
+    def decode(i):
+        node = {"kind": "node"}
+        for side in range(2):
+            code = int(np.rint(nodes[i, 12 + side]))
+            if code == ABSENT:
+                node[f"c{side}"] = None
+            elif code >= 0:
+                node[f"c{side}"] = decode(code)
+            else:
+                v = -(code + 1)
+                if v % 2 == 1:
+                    node[f"c{side}"] = {"kind": "inst", "iid": v // 2}
+                else:
+                    g = (v // 2) // 8
+                    node[f"c{side}"] = {"kind": "leaf",
+                                        "seg": segments[g].copy()}
+        return node
+
+    sys.setrecursionlimit(max(sys.getrecursionlimit(), 100000))
+    root = decode(0)
+
+    def merge(nd):
+        if nd is None or nd["kind"] != "node":
+            return nd
+        nd["c0"] = merge(nd["c0"])
+        nd["c1"] = merge(nd["c1"])
+        a, b = nd["c0"], nd["c1"]
+        if (a is not None and b is not None
+                and a["kind"] == "leaf" and b["kind"] == "leaf"
+                and len(a["seg"]) + len(b["seg"]) <= LEAF_W):
+            la, ha = seg_bounds(a["seg"])
+            lb, hb = seg_bounds(b["seg"])
+            lu = np.minimum(la, lb)
+            hu = np.maximum(ha, hb)
+            sa_u = max(_sa(lu, hu), 1e-30)
+            pa = min(_sa(la, ha) / sa_u, 1.0)
+            pb = min(_sa(lb, hb) / sa_u, 1.0)
+            cost_split = (C_NODE + pa * (C_LEAF + _pow2(len(a["seg"])))
+                          + pb * (C_LEAF + _pow2(len(b["seg"]))))
+            cost_merged = C_LEAF + _pow2(len(a["seg"]) + len(b["seg"]))
+            if cost_merged < cost_split:
+                return {"kind": "leaf",
+                        "seg": np.concatenate([a["seg"], b["seg"]])}
+        return nd
+
+    root = merge(root)
+
+    def try_split(leaf):
+        seg = leaf["seg"]
+        k = len(seg)
+        if k < 2 * min_leaf:
+            return leaf
+        lo, hi = seg_bounds(seg)
+        centroid = (bmin[seg] + bmax[seg]) * 0.5
+        ax = int(np.argmax(hi - lo))
+        order = seg[np.argsort(centroid[:, ax], kind="stable")]
+        m = k // 2
+        a, b = order[:m], order[m:]
+        la, ha = seg_bounds(a)
+        lb, hb = seg_bounds(b)
+        sa_u = max(_sa(lo, hi), 1e-30)
+        pa = min(_sa(la, ha) / sa_u, 1.0)
+        pb = min(_sa(lb, hb) / sa_u, 1.0)
+        cost_split = (C_NODE + pa * (C_LEAF + _pow2(len(a)))
+                      + pb * (C_LEAF + _pow2(len(b))))
+        if cost_split < hysteresis * (C_LEAF + _pow2(k)):
+            return {"kind": "node",
+                    "c0": try_split({"kind": "leaf", "seg": a}),
+                    "c1": try_split({"kind": "leaf", "seg": b})}
+        return leaf
+
+    def split_all(nd):
+        if nd is None:
+            return None
+        if nd["kind"] == "leaf":
+            return try_split(nd)
+        if nd["kind"] == "node":
+            nd["c0"] = split_all(nd["c0"])
+            nd["c1"] = split_all(nd["c1"])
+        return nd
+
+    root = split_all(root)
+
+    new_segments: list[np.ndarray] = []
+    out_nodes: list[np.ndarray] = []
+
+    def subtree_bounds(nd):
+        if nd["kind"] == "leaf":
+            return seg_bounds(nd["seg"])
+        if nd["kind"] == "inst":
+            raise AssertionError("shape_dense_leaves runs on single BLAS trees")
+        los, his = [], []
+        for side in range(2):
+            ch = nd[f"c{side}"]
+            if ch is not None:
+                lo, hi = subtree_bounds(ch)
+                los.append(lo)
+                his.append(hi)
+        return np.min(los, axis=0), np.max(his, axis=0)
+
+    def emit(nd):
+        """Returns the child code for nd, emitting nodes as needed."""
+        if nd["kind"] == "leaf":
+            g = len(new_segments)
+            new_segments.append(nd["seg"])
+            log2c = max(int(np.ceil(np.log2(max(len(nd["seg"]), 1)))), 0)
+            return _tri_code(g, log2c)
+        idx = len(out_nodes)
+        row = np.zeros(NODE_F, np.float32)
+        row[12:14] = ABSENT
+        out_nodes.append(row)
+        for side in range(2):
+            ch = nd[f"c{side}"]
+            if ch is None:
+                continue
+            lo, hi = subtree_bounds(ch)
+            row[6 * side:6 * side + 3] = lo
+            row[6 * side + 3:6 * side + 6] = hi
+            row[12 + side] = emit(ch)
+        return float(idx)
+
+    if root["kind"] == "leaf":
+        lo, hi = seg_bounds(root["seg"])
+        row = np.zeros(NODE_F, np.float32)
+        row[0:3] = lo
+        row[3:6] = hi
+        row[12:14] = ABSENT
+        out_nodes.append(row)
+        g = len(new_segments)
+        new_segments.append(root["seg"])
+        log2c = max(int(np.ceil(np.log2(max(len(root["seg"]), 1)))), 0)
+        row[12] = _tri_code(g, log2c)
+    else:
+        emit(root)
+    return np.stack(out_nodes), new_segments
+
+
+def _build_core_any(tri: np.ndarray, leaf_target: int, shape: bool = False):
+    out = _build_core(tri, leaf_target)
+    if shape:
+        nodes, segments, depth, lo, hi = out
+        nodes, segments = shape_dense_leaves(tri, nodes, segments)
+        depth = _tree_depth(nodes)
+        out = (nodes, segments, depth, lo, hi)
+    return out
+
+
+def _tree_depth(nodes: np.ndarray) -> int:
+    depth = 1
+    stack = [(0, 1)]
+    while stack:
+        n, d = stack.pop()
+        depth = max(depth, d)
+        for side in range(2):
+            c = int(np.rint(nodes[n, 12 + side]))
+            if c >= 0:
+                stack.append((c, d + 1))
+    return depth
+
+
+def build_dense(triangles: np.ndarray, leaf_target: int = 64,
+                shape: bool = False) -> tuple[DenseBVH, int]:
+    """Single-level build over one triangle soup (prim ids global).
+
+    shape=True runs the cost-driven leaf merge/split post-pass. Returns
+    (DenseBVH, depth)."""
+    tri = np.asarray(triangles, np.float32)
+    if tri.ndim == 2:
+        tri = tri.reshape(-1, 3, 3)
+    nodes, segments, depth, root_lo, root_hi = _build_core_any(
+        tri, leaf_target, shape)
+    groups = _pack_groups(tri, segments)
+    dbvh = DenseBVH.from_numpy(nodes.reshape(-1), groups, _NO_INST,
+                               np.zeros((1,), np.int32), root_lo, root_hi)
+    return dbvh, depth
+
+
+def _instance_aabbs(meta_lo, meta_hi, inst_mesh, transforms):
+    """World AABB per instance: transform the 8 corners of the BLAS root box."""
+    I = len(inst_mesh)
+    lo = np.empty((I, 3), np.float32)
+    hi = np.empty((I, 3), np.float32)
+    for i, m in enumerate(inst_mesh):
+        bl, bh = meta_lo[m], meta_hi[m]
+        cs = np.array([[x, y, z] for x in (bl[0], bh[0])
+                       for y in (bl[1], bh[1]) for z in (bl[2], bh[2])],
+                      np.float32)
+        w = cs @ transforms[i][:3, :3].T + transforms[i][:3, 3]
+        lo[i] = w.min(axis=0)
+        hi[i] = w.max(axis=0)
+    return lo, hi
+
+
+def _build_tlas_nodes(lo: np.ndarray, hi: np.ndarray, cap: int) -> np.ndarray:
+    """Sweep-SAH BVH2 over instance AABBs; leaves are instance codes."""
+    I = lo.shape[0]
+    nodes = np.zeros((cap, NODE_F), np.float32)
+    nodes[:, 12:14] = ABSENT
+    cent = (lo + hi) * 0.5
+    n_nodes = [1]
+
+    def alloc():
+        i = n_nodes[0]
+        n_nodes[0] += 1
+        return i
+
+    def set_child(node, side, idx):
+        part_lo = lo[idx].min(axis=0)
+        part_hi = hi[idx].max(axis=0)
+        nodes[node, 6 * side:6 * side + 3] = part_lo
+        nodes[node, 6 * side + 3:6 * side + 6] = part_hi
+        if len(idx) == 1:
+            nodes[node, 12 + side] = _inst_code(int(idx[0]))
+        else:
+            c = alloc()
+            nodes[node, 12 + side] = float(c)
+            split(idx, c)
+
+    def split(idx, node):
+        best = None
+        for ax in range(3):
+            o = idx[np.argsort(cent[idx, ax], kind="stable")]
+            lmin = np.minimum.accumulate(lo[o], axis=0)
+            lmax = np.maximum.accumulate(hi[o], axis=0)
+            rmin = np.minimum.accumulate(lo[o][::-1], axis=0)[::-1]
+            rmax = np.maximum.accumulate(hi[o][::-1], axis=0)[::-1]
+            k = np.arange(1, len(o))
+            cost = (_surface_area(lmin[:-1], lmax[:-1]) * k
+                    + _surface_area(rmin[1:], rmax[1:]) * (len(o) - k))
+            b = int(np.argmin(cost))
+            if best is None or cost[b] < best[0]:
+                best = (float(cost[b]), o, b + 1)
+        _, o, m = best
+        set_child(node, 0, o[:m])
+        set_child(node, 1, o[m:])
+
+    if I == 1:
+        set_child(0, 0, np.array([0]))
+    else:
+        split(np.arange(I), 0)
+    if n_nodes[0] > cap:
+        raise AssertionError("TLAS outgrew its reserved head")
+    return nodes
+
+
+def _inst_rows(inst_mesh, transforms, blas_root):
+    I = len(inst_mesh)
+    inst16 = np.zeros((I, INST_F), np.float32)
+    for i, m in enumerate(inst_mesh):
+        inv = np.linalg.inv(np.asarray(transforms[i], np.float64))
+        inst16[i, 0:12] = inv[:3, :4].astype(np.float32).reshape(-1)
+        inst16[i, 12] = float(blas_root[m])
+    return inst16
+
+
+def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
+                     leaf_target: int = 64, shape: bool = False,
+                     ) -> tuple[DenseBVH, TLASMeta, int]:
+    """Two-level build: one shared BLAS per mesh + TLAS over instances.
+
+    mesh_tris: per-mesh (T, 3, 3) object-space triangles; inst_mesh: (I,)
+    mesh index per instance; transforms: (I, 4, 4) world-from-object.
+    Returns (DenseBVH, TLASMeta, depth)."""
+    inst_mesh = np.asarray(inst_mesh, np.int64)
+    transforms = np.asarray(transforms, np.float32)
+    I = len(inst_mesh)
+    B = len(mesh_tris)
+    tlas_cap = max(I - 1, 1)
+
+    blas_nodes, blas_groups, blas_lo, blas_hi = [], [], [], []
+    depth_blas = 1
+    for tri in mesh_tris:
+        tri = np.asarray(tri, np.float32)
+        if tri.ndim == 2:
+            tri = tri.reshape(-1, 3, 3)
+        nodes, segments, dep, rlo, rhi = _build_core_any(tri, leaf_target,
+                                                         shape)
+        blas_nodes.append(nodes)
+        blas_groups.append(_pack_groups(tri, segments))
+        blas_lo.append(rlo)
+        blas_hi.append(rhi)
+        depth_blas = max(depth_blas, dep)
+    blas_lo = np.stack(blas_lo)
+    blas_hi = np.stack(blas_hi)
+
+    node_off = np.empty(B, np.int64)
+    group_off = np.empty(B, np.int64)
+    n = tlas_cap
+    g = 0
+    for b in range(B):
+        node_off[b] = n
+        group_off[b] = g
+        n += blas_nodes[b].shape[0]
+        g += blas_groups[b].shape[0] // GROUP_ROWS
+
+    merged = []
+    for b in range(B):
+        nn = blas_nodes[b].copy()
+        for k in (12, 13):
+            col = np.rint(nn[:, k]).astype(np.int64)
+            internal = col >= 0
+            out = col.copy()
+            out[internal] = col[internal] + node_off[b]
+            leaf = (col < 0) & (col != ABSENT)
+            v = -(col[leaf] + 1)
+            g8l = v // 2
+            regrouped = (g8l // 8 + group_off[b]) * 8 + g8l % 8
+            out[leaf] = -(2 * regrouped + 1)
+            nn[:, k] = out.astype(np.float32)
+        merged.append(nn)
+
+    inst16 = _inst_rows(inst_mesh, transforms, node_off)
+    lo, hi = _instance_aabbs(blas_lo, blas_hi, inst_mesh, transforms)
+    tlas = _build_tlas_nodes(lo, hi, tlas_cap)
+
+    all_nodes = np.concatenate([tlas] + merged, axis=0)
+    all_groups = np.concatenate(blas_groups, axis=0)
+
+    counts = np.array([mesh_tris[m].reshape(-1, 3, 3).shape[0]
+                       if np.asarray(mesh_tris[m]).ndim == 3
+                       else np.asarray(mesh_tris[m]).shape[0] // 3
+                       for m in inst_mesh], np.int64)
+    prim_base = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+
+    meta = TLASMeta(tlas_cap=tlas_cap, inst_mesh=inst_mesh,
+                    blas_root=node_off.copy(), blas_lo=blas_lo,
+                    blas_hi=blas_hi)
+    dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups,
+                               inst16.reshape(-1), prim_base,
+                               lo.min(axis=0), hi.max(axis=0))
+    depth = tlas_cap.bit_length() + depth_blas + 2
+    return dbvh, meta, depth

@@ -1,0 +1,355 @@
+"""Wavefront path-tracing integrator; counterpart of ``physically_based_ray_tracer_tpu/render/integrator.py``.
+
+Every path vertex does one closest-hit traversal, one shading/NEE block with
+one batched occlusion traversal (plus the NP-ray point pass when
+``one_shadow_ray`` is off), and one continuation sample. Lanes die by
+masking. The JAX package's ``lax.scan`` over bounces is a Python loop here,
+and its ``lax.cond`` gates are host checks (``alive.any()``): a bounce with
+no live lane is skipped, and a bounce where no live lane hit anything only
+settles the miss bookkeeping. Both change no result.
+
+Only the exact f32 traversal engine is ported (``traversal="pallas"``,
+``leaf_precision="f32"``, ``ops/trace.py``). Options the port does not
+carry raise ``NotImplementedError`` naming the option; see
+``check_supported``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from physically_based_ray_tracer_tpu_torch.config import (
+    BVH_FAR, EPSILON, P_DIRECTIONAL, P_POINT, P_SPOT, RenderConfig, RenderMode)
+from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
+from physically_based_ray_tracer_tpu_torch.ops import trace
+from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
+from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
+from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
+from physically_based_ray_tracer_tpu_torch.scene.lights import sample_area_rect
+from physically_based_ray_tracer_tpu_torch.scene.material import (
+    gather_hit_attrs, material_packed, packed_tables, shading_normal_packed)
+from physically_based_ray_tracer_tpu_torch.utils import rng
+from physically_based_ray_tracer_tpu_torch.utils.math import (dot, reflect,
+                                                              refract)
+from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
+
+
+def check_supported(cfg: RenderConfig, scene=None) -> None:
+    """Raise NotImplementedError for every option this port does not carry."""
+    if cfg.traversal != "pallas":
+        raise NotImplementedError(
+            f"traversal={cfg.traversal!r}: only the exact dense-BVH engine "
+            "(traversal='pallas') is ported")
+    if cfg.leaf_precision != "f32":
+        raise NotImplementedError(
+            f"leaf_precision={cfg.leaf_precision!r}: the bf16 engine is not "
+            "ported yet; pass leaf_precision='f32'")
+    if cfg.rendering_mode != RenderMode.BRDF:
+        raise NotImplementedError(
+            f"rendering_mode={cfg.rendering_mode!r}: AOV modes are not ported")
+    if cfg.post_processed:
+        raise NotImplementedError("post_processed=True: Panini projection and "
+                                  "post-processing are not ported")
+    if cfg.samples_per_pixel > 1:
+        raise NotImplementedError(
+            f"samples_per_pixel={cfg.samples_per_pixel}: in-frame multi-sample "
+            "batching is not ported")
+    if cfg.shade_tile > 0:
+        raise NotImplementedError(f"shade_tile={cfg.shade_tile}: sub-tile "
+                                  "shading gates are not ported")
+    if cfg.reshard_axis is not None and cfg.reshard_ndev > 1:
+        raise NotImplementedError("reshard_axis: cross-device ray resharding "
+                                  "is not ported")
+    if scene is not None and cfg.skybox and scene.sky.shape[0] > 1:
+        raise NotImplementedError("skybox=True with a sky image: skydome "
+                                  "sampling is not ported")
+
+
+def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False) -> Hit:
+    if sort and cfg.sort_rays:
+        return trace.sorted_closest_dense(scene.dense, o, d, t_max)
+    return trace.intersect_closest_dense(scene.dense, o, d, t_max)
+
+
+def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
+    if sort and cfg.sort_rays:
+        return trace.sorted_any_dense(scene.dense, o, d, t_max)
+    return trace.intersect_any_dense(scene.dense, o, d, t_max)
+
+
+def _light_type_weights(lights):
+    """Active-light-type probabilities (0.3/0.5/0.2, plus 0.3 for area
+    lights), renormalised over the types present."""
+    w = [P_POINT * (lights.n_point > 0), P_DIRECTIONAL * (lights.n_dir > 0),
+         P_SPOT * (lights.n_spot > 0), 0.3 * (lights.n_area > 0)]
+    total = sum(w)
+    if total == 0:
+        return None
+    return [x / total for x in w]
+
+
+def _select(onehot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row of ``x`` (B, N, C) picked by a one-hot (B, N) — exact."""
+    return torch.sum(onehot[..., None] * x, dim=1)
+
+
+def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
+                    pixel_id, key: int, sample: int, depth: int, alive=None):
+    """Stochastic next-event estimation; returns the vertex's radiance
+    contribution (throughput not applied)."""
+    lights = scene.lights
+    B = point.shape[0]
+    zeros = torch.zeros((B, 3), dtype=point.dtype, device=point.device)
+    live = torch.ones((B,), dtype=torch.bool, device=point.device) \
+        if alive is None else alive
+
+    weights = _light_type_weights(lights)
+    if weights is None or not cfg.lighted:
+        return zeros
+
+    if cfg.stochastic_lights:
+        u_pick = rng.uniform1(key, pixel_id, sample, depth, Purpose.LIGHT_TYPE)
+        p_point, p_dir, p_spot, p_area = weights
+        pick_point = u_pick < p_point
+        pick_dir = (~pick_point) & (u_pick < p_point + p_dir)
+        pick_spot = (~pick_point) & (~pick_dir) & (u_pick < p_point + p_dir + p_spot)
+        pick_area = (~pick_point) & (~pick_dir) & (~pick_spot) & (p_area > 0)
+    else:
+        if lights.n_dir == 0:
+            return zeros
+        p_dir = 1.0
+        p_point = p_spot = p_area = 0.0
+        pick_point = torch.zeros((B,), dtype=torch.bool, device=point.device)
+        pick_dir = torch.ones_like(pick_point)
+        pick_spot = torch.zeros_like(pick_point)
+        pick_area = torch.zeros_like(pick_point)
+
+    result = zeros
+    point_one = None
+
+    if lights.n_point > 0 and p_point > 0:
+        np_ = lights.n_point
+        lvec = lights.point_pos[None, :, :] - point[:, None, :]      # (B, NP, 3)
+        dist_sq = torch.sum(lvec * lvec, dim=-1)
+        dist = torch.sqrt(torch.clamp(dist_sq, min=1e-20))
+        ldir = lvec / dist[..., None]
+        cosa = torch.clamp(torch.sum(shading_n[:, None, :] * ldir, dim=-1), min=0.0)
+        inv_dist = 1.0 / dist
+        falloff = inv_dist * inv_dist if cfg.exact_point_falloff else inv_dist
+        contrib = (lights.point_color[None] * lights.point_active[None, :, None]
+                   * (falloff * cosa)[..., None])                     # (B, NP, 3)
+        lane_ids = torch.arange(np_, dtype=torch.int32, device=point.device)
+        u_sel = rng.uniform1(key, pixel_id, sample, depth, Purpose.LIGHT_SELECT)
+        # reference quirk: shadow tmax = dist^2 (exact_shadow_tmax: dist)
+        shadow_len = dist if cfg.exact_shadow_tmax else dist_sq
+        if cfg.one_shadow_ray:
+            # one uniformly picked light, weighted by NP: one occlusion lane
+            which = torch.clamp((u_sel * np_).to(torch.int32), max=np_ - 1)
+            onehot = (lane_ids[None, :] == which[:, None]).to(point.dtype)
+            l_sel = _select(onehot, ldir)
+            c_sel = _select(onehot, contrib) * np_
+            t_sel = torch.sum(onehot * shadow_len, dim=1)
+            point_one = (l_sel, t_sel - EPSILON, c_sel / p_point)
+        else:
+            # all NP shadow rays in one light-major occlusion pass
+            so = (point[:, None, :] + ldir * EPSILON).transpose(0, 1).reshape(np_ * B, 3)
+            sd = ldir.transpose(0, 1).reshape(np_ * B, 3)
+            keep = (pick_point & live)[:, None] & (torch.sum(contrib, dim=-1) > 0)
+            tmax = torch.where(keep, shadow_len - EPSILON,
+                               torch.zeros_like(shadow_len)).transpose(0, 1).reshape(np_ * B)
+            occ = _anyhit(scene, cfg, so, sd, tmax, sort=True).reshape(np_, B).transpose(0, 1)
+            visible = (~occ) & pick_point[:, None]
+            point_contrib = torch.sum(torch.where(visible[..., None], contrib,
+                                                  torch.zeros_like(contrib)), dim=1)
+            point_contrib = point_contrib / p_point
+            # specular BRDF from ONE randomly chosen light: int(u*10) % NP
+            which = torch.remainder((u_sel * 10.0).to(torch.int32), np_)
+            onehot = (lane_ids[None, :] == which[:, None]).to(point.dtype)
+            l_sel = _select(onehot, ldir)
+            bsdf = brdf_ops.eval_combined_brdf(shading_n, l_sel, v, material, cfg.brdf)
+            result = result + torch.where(pick_point[:, None], bsdf * point_contrib,
+                                          zeros)
+
+    any_other = ((lights.n_dir > 0 and p_dir > 0) or (lights.n_spot > 0 and p_spot > 0)
+                 or (lights.n_area > 0 and p_area > 0) or point_one is not None)
+    if not any_other:
+        return result
+    l_dir = zeros
+    t_other = torch.zeros((B,), dtype=point.dtype, device=point.device)
+    contrib_other = zeros
+    if point_one is not None:
+        l_sel, t_sel, c_sel = point_one
+        l_dir = torch.where(pick_point[:, None], l_sel, l_dir)
+        t_other = torch.where(pick_point, t_sel, t_other)
+        contrib_other = torch.where(pick_point[:, None], c_sel, contrib_other)
+    if lights.n_dir > 0 and p_dir > 0:
+        lvec = lights.dir_pos[0][None, :] - point
+        dist = torch.sqrt(torch.clamp(torch.sum(lvec * lvec, dim=-1), min=1e-20))
+        ld = lvec / dist[:, None]
+        cosa = torch.clamp(dot(shading_n, ld), min=0.0)
+        c = lights.dir_color[0][None, :] * cosa[:, None] / p_dir
+        l_dir = torch.where(pick_dir[:, None], ld, l_dir)
+        t_other = torch.where(pick_dir, dist - EPSILON, t_other)
+        contrib_other = torch.where(pick_dir[:, None], c, contrib_other)
+    if lights.n_spot > 0 and p_spot > 0:
+        lvec = lights.spot_pos[0][None, :] - point
+        dist = torch.sqrt(torch.clamp(torch.sum(lvec * lvec, dim=-1), min=1e-20))
+        ld = lvec / dist[:, None]
+        cosa = torch.clamp(dot(shading_n, ld), min=0.0)
+        factor = dot(ld, lights.spot_rot[0][None, :])
+        c = (lights.spot_color[0][None, :] * (cosa / (dist * dist))[:, None]
+             * (factor > 0.9)[:, None].to(point.dtype)) / p_spot
+        l_dir = torch.where(pick_spot[:, None], ld, l_dir)
+        t_other = torch.where(pick_spot, dist - EPSILON, t_other)
+        contrib_other = torch.where(pick_spot[:, None], c, contrib_other)
+    if lights.n_area > 0 and p_area > 0:
+        u_area = rng.uniform2(key, pixel_id, sample, depth, Purpose.AREA_LIGHT)
+        u_sel = rng.uniform1(key, pixel_id, sample, depth, Purpose.LIGHT_SELECT)
+        which = torch.remainder((u_sel * lights.n_area).to(torch.int32), lights.n_area)
+        q, ln, pdf_area = sample_area_rect(lights, which.long(), u_area)
+        lvec = q - point
+        dist_sq = torch.clamp(torch.sum(lvec * lvec, dim=-1), min=1e-20)
+        dist = torch.sqrt(dist_sq)
+        ld = lvec / dist[:, None]
+        cos_light = torch.clamp(-dot(ld, ln), min=0.0)
+        col = lights.area_color[which.long().clamp(0, lights.n_area - 1)]
+        c = col * (cos_light / (dist_sq * pdf_area * p_area
+                                * float(lights.n_area)))[:, None] * float(lights.n_area)
+        l_dir = torch.where(pick_area[:, None], ld, l_dir)
+        t_other = torch.where(pick_area, dist - EPSILON, t_other)
+        contrib_other = torch.where(pick_area[:, None], c, contrib_other)
+
+    so = point + l_dir * EPSILON
+    # zero-contribution shadow rays cannot change the result: mask them off
+    t_other = torch.where(live & (torch.sum(contrib_other, dim=-1) > 0),
+                          t_other, torch.zeros_like(t_other))
+    occ = _anyhit(scene, cfg, so, l_dir, t_other, sort=True)
+    bsdf = brdf_ops.eval_combined_brdf(shading_n, l_dir, v, material, cfg.brdf)
+    picked = pick_dir | pick_spot | pick_area
+    if point_one is not None:
+        picked = picked | pick_point
+    other = torch.where(((~occ) & picked)[:, None], bsdf * contrib_other, zeros)
+    return result + other
+
+
+def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int):
+    """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit)."""
+    check_supported(cfg, scene)
+    B = o.shape[0]
+    dev = o.device
+    packs = packed_tables(scene)
+    radiance = torch.zeros((B, 3), dtype=o.dtype, device=dev)
+    throughput = torch.ones((B, 3), dtype=o.dtype, device=dev)
+    alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    primary_t = torch.full((B,), BVH_FAR, dtype=o.dtype, device=dev)
+
+    for depth in range(cfg.bounces):
+        if not bool(alive.any()):
+            continue           # bounce gate: nothing alive, carry unchanged
+        t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
+                             torch.zeros_like(primary_t))
+        hit = _closest(scene, cfg, o, d, t_init, sort=True)
+        prim = hit.prim.clamp(min=0).long()
+        found0 = hit.prim >= 0
+        if depth == 0:
+            primary_t = hit.t
+        if not bool(found0.any()):
+            alive = torch.zeros_like(alive)   # every live lane missed
+            continue
+
+        attrs = gather_hit_attrs(scene, packs, prim)
+        rt, ru, rv = refine_hit(o, d, attrs["v0"], attrs["e1"], attrs["e2"],
+                                mask=found0)
+        # the bf16-apron guard and simplex clamp of the JAX integrator; both
+        # are no-ops for the exact engine, kept for value parity
+        inside = torch.minimum(torch.minimum(ru, rv), 1.0 - ru - rv) > -0.02
+        found = found0 & inside
+        ru = torch.clamp(ru, 0.0, 1.0)
+        rv = torch.minimum(torch.clamp(rv, min=0.0), torch.clamp(1.0 - ru, min=0.0))
+        zero = torch.zeros_like(ru)
+        hit_t = torch.where(found, rt, hit.t)
+        hit_u = torch.where(found, ru, zero)
+        hit_v = torch.where(found, rv, zero)
+        if depth == 0:
+            primary_t = hit_t
+        alive = alive & found
+
+        point = o + d * torch.where(found, hit_t, torch.ones_like(hit_t))[:, None]
+        v = -d
+        geom_n = attrs["face_n"]
+        shad_n = shading_normal_packed(scene, attrs, hit_u, hit_v, cfg.normal_mapped)
+        material = material_packed(scene, attrs, hit_u, hit_v)
+
+        vertex_rad = throughput * material.emissive
+        dl = direct_lighting(scene, cfg, point, shad_n, v, material, pixel_id,
+                             key, sample, depth, alive=alive)
+        vertex_rad = vertex_rad + throughput * dl
+
+        last = depth == cfg.bounces - 1
+        # the dielectric branch discards this vertex's own emissive+NEE,
+        # except at the last vertex
+        is_dielectric = (material.transmissivness == 1.0) & (not last)
+        radiance = radiance + torch.where((alive & ~is_dielectric)[:, None],
+                                          vertex_rad, torch.zeros_like(vertex_rad))
+
+        # dielectric continuation: Fresnel russian roulette
+        n1, n2 = 1.0, 1.46
+        cos_theta = torch.clamp(-dot(d, shad_n), 0.0, 1.0)
+        eta = n1 / n2
+        k = 1.0 - eta * eta * (1.0 - cos_theta * cos_theta)
+        r0 = ((n1 - n2) / (n1 + n2)) ** 2
+        fresnel = r0 + (1.0 - r0) * torch.pow(1.0 - cos_theta, 5.0)
+        fresnel = torch.where(k <= 0.0, torch.ones_like(fresnel), fresnel)
+        u_diel = rng.uniform1(key, pixel_id, sample, depth, Purpose.DIELECTRIC)
+        take_reflect = (u_diel < fresnel)[:, None]
+        diel_dir = torch.where(take_reflect, reflect(d, shad_n),
+                               refract(d, shad_n, eta))
+        diel_org = torch.where(take_reflect, point + shad_n * EPSILON,
+                               point - shad_n * EPSILON)
+
+        # lobe selection: mirror fast path + RIS lottery
+        is_mirror = (material.metalness == 1.0) & (material.roughness == 0.0)
+        p_spec = brdf_ops.get_brdf_probability(material, v, shad_n)
+        u_lobe = rng.uniform1(key, pixel_id, sample, depth, Purpose.LOBE_SELECT)
+        pick_spec = (u_lobe < p_spec) | is_mirror
+        lobe_div = torch.where(is_mirror, torch.ones_like(p_spec),
+                               torch.where(pick_spec, p_spec, 1.0 - p_spec))
+        brdf_type = torch.where(pick_spec, brdf_ops.SPECULAR_TYPE,
+                                brdf_ops.DIFFUSE_TYPE).to(torch.int32)
+        u2 = rng.uniform2(key, pixel_id, sample, depth, Purpose.BRDF_SAMPLE)
+        bounce_dir, weight, valid = brdf_ops.eval_indirect_combined_brdf(
+            u2, shad_n, geom_n, v, material, brdf_type, cfg.brdf)
+
+        w_scaled = weight / lobe_div[:, None]
+        diel = is_dielectric[:, None]
+        throughput = throughput * torch.where(diel, torch.ones_like(w_scaled), w_scaled)
+        o = torch.where(diel, diel_org, point + bounce_dir * EPSILON)
+        d = torch.where(diel, diel_dir, bounce_dir)
+        alive = alive & (is_dielectric | valid)
+
+    neg1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros((B,), dtype=o.dtype, device=dev)
+    return radiance, Hit(t=primary_t, u=zero, v=zero.clone(), prim=neg1,
+                         inst=neg1.clone())
+
+
+def render_sample(scene, cam, cfg: RenderConfig, key: int, sample: int,
+                  pixel_ids: torch.Tensor):
+    """One sample for a batch of pixels: primary ray at integer pixel
+    coords, plus a jittered AA ray averaged 50/50 (both traced in one
+    doubled batch, the second with pixel ids offset by n_pixels).
+    Returns (color (B,3), primary_t (B,))."""
+    xs = torch.remainder(pixel_ids, cfg.width).to(torch.float32)
+    ys = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
+    o1, d1 = primary_rays(cam, xs, ys, cfg.width, cfg.height)
+    if cfg.antialias:
+        b = pixel_ids.shape[0]
+        j = rng.uniform2(key, pixel_ids, sample, 0, Purpose.AA_JITTER)
+        o2, d2 = primary_rays(cam, xs + j[:, 0], ys + j[:, 1], cfg.width, cfg.height)
+        o = torch.cat([o1, o2])
+        d = torch.cat([d1, d2])
+        pid2 = torch.cat([pixel_ids, pixel_ids + cfg.n_pixels])
+        r, hit = trace_paths(scene, cfg, o, d, pid2, key, sample)
+        return 0.5 * (r[:b] + r[b:]), hit.t[:b]
+    color, hit = trace_paths(scene, cfg, o1, d1, pixel_ids, key, sample)
+    return color, hit.t

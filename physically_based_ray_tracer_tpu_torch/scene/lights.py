@@ -1,0 +1,103 @@
+"""Light sets as SoA tensors; counterpart of ``physically_based_ray_tracer_tpu/scene/lights.py``.
+
+Point lights (color * cos / dist falloff), a directional light evaluated
+toward a position, a spot light with a hard dot(L, rot) > 0.9 cone, and
+rectangular area lights. Counts are the tensors' leading sizes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LightSet:
+    """All scene lights; counts are static (tensor shapes)."""
+
+    point_pos: torch.Tensor     # (NP, 3)
+    point_color: torch.Tensor   # (NP, 3)
+    point_active: torch.Tensor  # (NP,) f32 0/1
+    dir_pos: torch.Tensor       # (ND, 3) a position, as in the reference
+    dir_color: torch.Tensor     # (ND, 3)
+    spot_pos: torch.Tensor      # (NS, 3)
+    spot_color: torch.Tensor    # (NS, 3)
+    spot_rot: torch.Tensor      # (NS, 3) cone axis
+    area_pos: torch.Tensor      # (NA, 3) rectangle center
+    area_color: torch.Tensor    # (NA, 3) radiance
+    area_u: torch.Tensor        # (NA, 3) half-edge vector 1
+    area_v: torch.Tensor        # (NA, 3) half-edge vector 2
+
+    @staticmethod
+    def make(point_pos=None, point_color=None, point_active=None,
+             dir_pos=None, dir_color=None,
+             spot_pos=None, spot_color=None, spot_rot=None,
+             area_pos=None, area_color=None, area_u=None, area_v=None,
+             device="cpu") -> "LightSet":
+        def arr(x):
+            if x is None:
+                return torch.zeros((0, 3), dtype=torch.float32, device=device)
+            return torch.tensor(np.asarray(x, np.float32),
+                                device=device).reshape(-1, 3)
+
+        pp = arr(point_pos)
+        pa = (torch.ones((pp.shape[0],), dtype=torch.float32, device=device)
+              if point_active is None
+              else torch.tensor(np.asarray(point_active, np.float32),
+                                device=device).reshape(-1))
+        return LightSet(
+            point_pos=pp, point_color=arr(point_color), point_active=pa,
+            dir_pos=arr(dir_pos), dir_color=arr(dir_color),
+            spot_pos=arr(spot_pos), spot_color=arr(spot_color),
+            spot_rot=arr(spot_rot),
+            area_pos=arr(area_pos), area_color=arr(area_color),
+            area_u=arr(area_u), area_v=arr(area_v))
+
+    def to(self, device) -> "LightSet":
+        return LightSet(**{f.name: getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(self)})
+
+    @property
+    def n_point(self) -> int:
+        return self.point_pos.shape[0]
+
+    @property
+    def n_dir(self) -> int:
+        return self.dir_pos.shape[0]
+
+    @property
+    def n_spot(self) -> int:
+        return self.spot_pos.shape[0]
+
+    @property
+    def n_area(self) -> int:
+        return self.area_pos.shape[0]
+
+    def pad_points(self, n: int = 4) -> "LightSet":
+        """Pad point lights to ``n`` slots with inactive zero lights."""
+        k = self.point_pos.shape[0]
+        if k >= n:
+            return self
+        z3 = self.point_pos.new_zeros((n - k, 3))
+        return dataclasses.replace(
+            self,
+            point_pos=torch.cat([self.point_pos, z3]),
+            point_color=torch.cat([self.point_color, z3]),
+            point_active=torch.cat([self.point_active,
+                                    self.point_active.new_zeros((n - k,))]))
+
+
+def sample_area_rect(lights: LightSet, idx: torch.Tensor, u2: torch.Tensor):
+    """Uniform point on rectangular area light ``idx``; returns (point, normal, pdf_area)."""
+    idx = idx.clamp(0, lights.n_area - 1)
+    pos = lights.area_pos[idx]
+    eu = lights.area_u[idx]
+    ev = lights.area_v[idx]
+    p = pos + (2.0 * u2[..., 0:1] - 1.0) * eu + (2.0 * u2[..., 1:2] - 1.0) * ev
+    n = torch.linalg.cross(eu, ev, dim=-1)
+    area = 4.0 * torch.linalg.norm(n, dim=-1)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-20)
+    pdf = 1.0 / torch.clamp(area, min=1e-20)
+    return p, n, pdf

@@ -1,0 +1,285 @@
+"""Scene assembly; counterpart of ``physically_based_ray_tracer_tpu/scene/scene.py``.
+
+Models + instances -> ``SceneData`` on one device. ``build_scene`` bakes
+instance transforms into world space and builds one single-level dense BVH;
+``build_scene_instanced`` builds a shared BLAS per model plus a TLAS over
+instances, or flattens under the same ``flatten="auto"`` policy as the JAX
+package, so both packages trace the same tables.
+
+Not ported: the classic 2-wide BVH (``SceneData.bvh``) that only the XLA
+traversal engines read, and ``rebuild_scene`` (scene lifecycle, later work).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from physically_based_ray_tracer_tpu_torch.bvh.dense import (GROUP_ROWS,
+                                                             NODE_F, DenseBVH,
+                                                             TLASMeta,
+                                                             build_dense,
+                                                             build_dense_tlas)
+from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
+from physically_based_ray_tracer_tpu_torch.utils.math import (
+    compose_trs, inverse_transpose_3x3, transform_points)
+
+
+@dataclass
+class MeshModel:
+    """Host-side model: fat corner arrays + material + optional textures."""
+
+    corners: np.ndarray                      # (3T, 3) f32
+    normals: np.ndarray                      # (3T, 3) f32
+    uvs: np.ndarray                          # (3T, 2) f32
+    face_normals: np.ndarray                 # (T, 3) f32
+    name: str = "model"
+    base_color: tuple = (0.8, 0.8, 0.8)
+    metalness: float = 0.0
+    roughness: float = 0.5
+    emissive: tuple = (0.0, 0.0, 0.0)
+    transmissivness: float = 0.0
+    reflectance: float = 0.5
+    opacity: float = 1.0
+    albedo_texture: Optional[np.ndarray] = None    # (H, W) uint32 ARGB
+    normal_texture: Optional[np.ndarray] = None
+    rma_texture: Optional[np.ndarray] = None
+    emission_texture: Optional[np.ndarray] = None
+
+    @property
+    def n_tris(self) -> int:
+        return self.corners.shape[0] // 3
+
+    @staticmethod
+    def from_fat(fat, **kw) -> "MeshModel":
+        corners, normals, uvs, face_normals = fat
+        return MeshModel(corners=corners, normals=normals, uvs=uvs,
+                         face_normals=face_normals, **kw)
+
+
+@dataclass
+class Instance:
+    """Model index + TRS."""
+
+    model: int
+    position: tuple = (0.0, 0.0, 0.0)
+    rotation: tuple = (0.0, 0.0, 0.0)   # Euler radians
+    scale: tuple = (1.0, 1.0, 1.0)
+    name: str = "object"
+
+    @property
+    def transform(self) -> np.ndarray:
+        return compose_trs(self.position, self.rotation, self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneData:
+    """Everything the integrator needs, as tensors on one device."""
+
+    dense: DenseBVH
+    tri_v0: torch.Tensor        # (P, 3) world, original prim order
+    tri_e1: torch.Tensor        # (P, 3)
+    tri_e2: torch.Tensor        # (P, 3)
+    face_normal: torch.Tensor   # (P, 3) world, normalized
+    corner_normal: torch.Tensor  # (3P, 3) world
+    corner_uv: torch.Tensor     # (3P, 2)
+    prim_model: torch.Tensor    # (P,) i32
+    prim_inst: torch.Tensor     # (P,) i32
+    mat_base: torch.Tensor         # (M, 3)
+    mat_metal: torch.Tensor        # (M,)
+    mat_rough: torch.Tensor        # (M,)
+    mat_emissive: torch.Tensor     # (M, 3)
+    mat_transmissive: torch.Tensor  # (M,)
+    mat_reflectance: torch.Tensor  # (M,)
+    mat_opacity: torch.Tensor      # (M,)
+    tex_record: torch.Tensor       # (M, 4, 3) i32: offset(-1=none), width, height
+    texel_pool: torch.Tensor       # (K,) texels as i64 (uint32 values)
+    lights: LightSet
+    sky: torch.Tensor              # (Hs, Ws, 3) f32; (1,1,3) zeros if absent
+
+    @property
+    def n_prims(self) -> int:
+        return self.tri_v0.shape[0]
+
+    def to(self, device) -> "SceneData":
+        kw = {}
+        for f in dataclasses.fields(self):
+            x = getattr(self, f.name)
+            kw[f.name] = x.to(device)
+        return SceneData(**kw)
+
+
+def _bake_world(models, instances):
+    """World-space shading arrays in per-instance-concatenated prim order."""
+    all_corners, all_normals, all_uvs, all_face_n = [], [], [], []
+    prim_model, prim_inst = [], []
+    for inst_id, inst in enumerate(instances):
+        mdl = models[inst.model]
+        m = inst.transform
+        nrm_m = inverse_transpose_3x3(m)
+        wc = transform_points(m, mdl.corners)
+        wn = mdl.normals @ nrm_m.T
+        wn /= np.maximum(np.linalg.norm(wn, axis=1, keepdims=True), 1e-20)
+        wf = mdl.face_normals @ nrm_m.T
+        wf /= np.maximum(np.linalg.norm(wf, axis=1, keepdims=True), 1e-20)
+        all_corners.append(wc.astype(np.float32))
+        all_normals.append(wn.astype(np.float32))
+        all_uvs.append(mdl.uvs.astype(np.float32))
+        all_face_n.append(wf.astype(np.float32))
+        prim_model.append(np.full(mdl.n_tris, inst.model, np.int32))
+        prim_inst.append(np.full(mdl.n_tris, inst_id, np.int32))
+    corners = np.concatenate(all_corners)
+    return dict(
+        tri=corners.reshape(-1, 3, 3),
+        face_n=np.concatenate(all_face_n),
+        normals=np.concatenate(all_normals),
+        uvs=np.concatenate(all_uvs),
+        prim_model=np.concatenate(prim_model),
+        prim_inst=np.concatenate(prim_inst),
+    )
+
+
+def _texture_pool(models):
+    pool_parts: list[np.ndarray] = []
+    tex_record = np.full((len(models), 4, 3), -1, np.int32)
+    offset = 0
+    for mi, mdl in enumerate(models):
+        for ki, raster in enumerate([mdl.albedo_texture, mdl.normal_texture,
+                                     mdl.rma_texture, mdl.emission_texture]):
+            if raster is None:
+                continue
+            r = np.ascontiguousarray(raster, np.uint32)
+            h, w = r.shape
+            tex_record[mi, ki] = (offset, w, h)
+            pool_parts.append(r.reshape(-1))
+            offset += w * h
+    texel_pool = (np.concatenate(pool_parts) if pool_parts
+                  else np.zeros((1,), np.uint32))
+    return tex_record, texel_pool
+
+
+def _assemble(models, dense, baked, lights, sky, device):
+    tri = baked["tri"]
+    v0 = tri[:, 0]
+    tex_record, texel_pool = _texture_pool(models)
+    if sky is None:
+        sky = np.zeros((1, 1, 3), np.float32)
+    lights = lights if lights is not None else LightSet.make()
+    arrays = dict(
+        tri_v0=v0, tri_e1=tri[:, 1] - v0, tri_e2=tri[:, 2] - v0,
+        face_normal=baked["face_n"], corner_normal=baked["normals"],
+        corner_uv=baked["uvs"], prim_model=baked["prim_model"],
+        prim_inst=baked["prim_inst"],
+        mat_base=[m.base_color for m in models],
+        mat_metal=[m.metalness for m in models],
+        mat_rough=[m.roughness for m in models],
+        mat_emissive=[m.emissive for m in models],
+        mat_transmissive=[m.transmissivness for m in models],
+        mat_reflectance=[m.reflectance for m in models],
+        mat_opacity=[m.opacity for m in models],
+        tex_record=tex_record, texel_pool=texel_pool, sky=sky)
+    return _from_arrays(arrays, dense.to(device), lights.to(device), device)
+
+
+_INT_FIELDS = {"prim_model": np.int32, "prim_inst": np.int32,
+               "tex_record": np.int32, "texel_pool": np.int64}
+
+
+def _from_arrays(arrays: dict, dense: DenseBVH, lights: LightSet,
+                 device) -> SceneData:
+    kw = {}
+    for name, x in arrays.items():
+        dtype = _INT_FIELDS.get(name, np.float32)
+        kw[name] = torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+    return SceneData(dense=dense, lights=lights, **kw)
+
+
+def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
+    """The port's SceneData from the JAX package's SceneData fields.
+
+    ``arrays`` maps each SceneData field name to ``np.asarray`` of the JAX
+    field, except ``dense`` and ``lights``, which map to dicts of their own
+    fields (DenseBVH: nodes16, groups, inst16, prim_base, world_lo,
+    world_hi; LightSet: its twelve arrays). The legacy ``bvh`` field is not
+    read. Tests use this so that both packages trace identical tables."""
+    d = arrays["dense"]
+    dense = DenseBVH.from_numpy(d["nodes16"], d["groups"], d["inst16"],
+                                d["prim_base"], d["world_lo"], d["world_hi"],
+                                device=device)
+    lights = LightSet(**{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+                         for k, v in arrays["lights"].items()})
+    rest = {k: v for k, v in arrays.items()
+            if k in {f.name for f in dataclasses.fields(SceneData)}
+            and k not in ("dense", "lights")}
+    return _from_arrays(rest, dense, lights, device)
+
+
+def build_scene(models: list[MeshModel], instances: list[Instance],
+                lights: LightSet | None = None, sky: np.ndarray | None = None,
+                dense_leaf_target: int = 16, dense_shape: bool = True,
+                device="cpu") -> tuple[SceneData, int]:
+    """Bake instances to world space, build the single-level dense BVH.
+    Returns (scene_data, depth)."""
+    baked = _bake_world(models, instances)
+    dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
+                               shape=dense_shape)
+    return _assemble(models, dense, baked, lights, sky, device), depth
+
+
+# Scene-adaptive layout policy, kept identical to the JAX package so both
+# build the same tables. The thresholds are TPU-derived: SMEM_NODE_LIMIT
+# (192 KB of scalar memory for the node table) and VMEM_GROUP_LIMIT (10.5 MB
+# of vector memory for the leaf groups) bound what the TPU kernel keeps in
+# fast memory. A GPU has no such tiers (the whole bench table fits its L2);
+# fitting the policy to the GPU kernel is later perf work.
+FLATTEN_MAX_INSTANCES = 128
+FLATTEN_MAX_TRIS = 1 << 18
+SMEM_NODE_LIMIT = 3072
+VMEM_GROUP_LIMIT = 1280
+
+
+def _dense_fits_fast_memory(dense: DenseBVH) -> bool:
+    n_nodes = dense.nodes16.shape[0] // NODE_F
+    n_groups = dense.groups.shape[0] // GROUP_ROWS
+    return n_nodes <= SMEM_NODE_LIMIT and n_groups <= VMEM_GROUP_LIMIT
+
+
+def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
+                          lights: LightSet | None = None,
+                          sky: np.ndarray | None = None,
+                          dense_leaf_target: int = 16,
+                          dense_shape: bool = True,
+                          flatten: bool | str = False,
+                          device="cpu",
+                          ) -> tuple[SceneData, TLASMeta | None, int]:
+    """Two-level build: shared BLAS per model + TLAS over instances.
+
+    ``flatten``: False keeps the two-level structure; "auto" world-bakes
+    small scenes into one single-level tree when the flattened tables pass
+    the fast-memory check; True forces flattening.
+
+    Returns (scene_data, tlas_meta or None when flattened, depth)."""
+    baked = _bake_world(models, instances)
+    do_flatten = (flatten is True) or (
+        flatten == "auto" and len(instances) <= FLATTEN_MAX_INSTANCES
+        and baked["tri"].shape[0] <= FLATTEN_MAX_TRIS)
+    meta = None
+    if do_flatten:
+        dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
+                                   shape=dense_shape)
+        if flatten == "auto" and not _dense_fits_fast_memory(dense):
+            do_flatten = False
+    if not do_flatten:
+        mesh_tris = [m.corners.reshape(-1, 3, 3).astype(np.float32)
+                     for m in models]
+        inst_mesh = np.array([i.model for i in instances], np.int64)
+        transforms = np.stack([i.transform
+                               for i in instances]).astype(np.float32)
+        dense, meta, depth = build_dense_tlas(mesh_tris, inst_mesh, transforms,
+                                              leaf_target=dense_leaf_target,
+                                              shape=dense_shape)
+    return _assemble(models, dense, baked, lights, sky, device), meta, depth

@@ -1,0 +1,69 @@
+#!/usr/bin/env python3
+"""Profile one bench frame of the PyTorch + CUDA port on the GPU.
+
+    python3 profile_torch_frame.py
+
+Renders the benchmark frame (bench scene, 4 bounces, AA, one shadow ray,
+f32 engine) once to warm up, then once under ``torch.profiler`` and prints:
+the frame's wall time, the summed device time of all kernels (and of the
+traversal kernel alone), the device-busy share of the wall time, the kernel
+launch count, and the top 40 operators by device time.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_frame: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    scene, cam, _ = build_bench_scene(device=dev)
+    cfg = RenderConfig(width=1280, height=720, bounces=4,
+                       antialias=True, skybox=False, traversal="pallas",
+                       leaf_precision="f32", one_shadow_ray=True,
+                       chunk_pixels=65536)
+    r = Renderer(scene, cam, cfg, device=dev)
+    r.tick(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.tick(0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels: their own events where the profiler lists them, else
+    # the kernels attached to the CPU operators that launched them
+    evs = prof.events()
+    kernels = [(e.name, e.device_time_total) for e in evs
+               if e.device_type.name != "CPU"]
+    if not kernels:
+        kernels = [(k.name, k.duration) for e in evs for k in e.kernels]
+    dev_ms = sum(t for _, t in kernels) / 1e3
+    trav_ms = sum(t for n, t in kernels if "traverse_kernel" in n) / 1e3
+    print(f"card: {card}")
+    print(f"frame 1280x720: wall {wall_ms:.2f} ms, device "
+          f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), traversal kernel "
+          f"{trav_ms:.2f} ms, device busy {100 * dev_ms / wall_ms:.1f}%")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

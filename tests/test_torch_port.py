@@ -1,0 +1,126 @@
+"""Port-wide contracts: nothing of JAX or of the JAX package anywhere in the
+port, a configuration that mirrors the JAX package's, every option it does
+not carry raises NotImplementedError, and the GPU smoke run refuses to run
+(without printing a result) where there is no GPU or no port."""
+
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+import torch  # noqa: E402
+
+from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
+from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
+    check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays  # noqa: E402
+from tests.torch_port import (SLICE_CFG, instanced_scene, port_camera,  # noqa: E402
+                              port_config, port_scene)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "physically_based_ray_tracer_tpu_torch"
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_port_imports_no_jax():
+    mods = _port_modules()
+    assert "physically_based_ray_tracer_tpu_torch.ops.trace" in mods
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            + "       ('jax', 'jaxlib', 'physically_based_ray_tracer_tpu')]\n"
+            + "assert not bad, bad\n"
+            + "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        text = p.read_text()
+        assert "import jax" not in text and "from jax" not in text, p
+        assert "physically_based_ray_tracer_tpu." not in text, p
+
+
+def test_config_mirrors_jax():
+    """The port's config.py is the JAX package's, field for field: the
+    same constants, enum members, dataclass fields and defaults."""
+    consts = lambda m: {k: v for k, v in vars(m).items()
+                        if k.isupper() and not isinstance(v, type)}
+    assert consts(tconfig) == consts(jconfig)
+    for name in ("RenderMode", "NDF", "DiffuseModel", "SpecularModel"):
+        members = lambda m: [(e.name, e.value) for e in getattr(m, name)]
+        assert members(tconfig) == members(jconfig), name
+    for name in ("BRDFConfig", "RenderConfig"):
+        tcls, jcls = getattr(tconfig, name), getattr(jconfig, name)
+        assert ([f.name for f in dataclasses.fields(tcls)]
+                == [f.name for f in dataclasses.fields(jcls)]), name
+        assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls()), name
+    assert port_config(SLICE_CFG).n_pixels == SLICE_CFG.n_pixels
+    assert dataclasses.asdict(port_config(SLICE_CFG)) == dataclasses.asdict(SLICE_CFG)
+
+
+@pytest.mark.parametrize("kw,name", [
+    (dict(leaf_precision="bf16"), "leaf_precision"),
+    (dict(traversal="wave"), "traversal"),
+    (dict(traversal="pallas_rows"), "traversal"),
+    (dict(rendering_mode=RenderMode.BASECOLOR), "rendering_mode"),
+    (dict(rendering_mode=RenderMode.DEPTH), "rendering_mode"),
+    (dict(post_processed=True), "post_processed"),
+    (dict(samples_per_pixel=2), "samples_per_pixel"),
+    (dict(shade_tile=64), "shade_tile"),
+    (dict(reshard_axis="x", reshard_ndev=2), "reshard_axis"),
+])
+def test_unported_options_raise(kw, name):
+    jscene, jcam = instanced_scene()
+    scene, cam = port_scene(jscene), port_camera(jcam)
+    cfg = port_config(SLICE_CFG).replace(**kw)
+    with pytest.raises(NotImplementedError, match=name):
+        check_supported(cfg, scene)
+    with pytest.raises(NotImplementedError, match=name):
+        render_sample(scene, cam, cfg, 0, 0, torch.arange(4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match=name):
+        Renderer(scene, cam, cfg)
+
+
+def test_default_config_and_sky_raise():
+    """RenderConfig's default engine (bf16) and a real sky image are refused."""
+    jscene, jcam = instanced_scene()
+    scene, cam = port_scene(jscene), port_camera(jcam)
+    with pytest.raises(NotImplementedError, match="leaf_precision"):
+        Renderer(scene, cam, RenderConfig(width=8, height=8))
+    sky_scene = dataclasses.replace(scene, sky=torch.ones((4, 8, 3)))
+    cfg = port_config(SLICE_CFG)
+    with pytest.raises(NotImplementedError, match="skybox"):
+        Renderer(sky_scene, cam, cfg.replace(skybox=True))
+    Renderer(sky_scene, cam, cfg.replace(skybox=False))   # sky unused: fine
+    with pytest.raises(NotImplementedError, match="Panini"):
+        primary_rays(cam, torch.zeros(2), torch.zeros(2), 8, 8, panini=True)
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    """Without CUDA, and in a directory holding only chip_smoke.py, the
+    smoke run exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    for cwd in (ROOT, tmp_path):
+        script = cwd / "chip_smoke.py"
+        if cwd == tmp_path:
+            shutil.copy(ROOT / "chip_smoke.py", script)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
+

@@ -1,0 +1,106 @@
+"""Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
+carry a scene or a configuration of the JAX package over to the port, and a
+small two-level instanced scene built identically by both packages."""
+
+import dataclasses
+import enum
+
+import numpy as np
+
+from physically_based_ray_tracer_tpu.config import RenderConfig
+from physically_based_ray_tracer_tpu.scene.camera import Camera as JCamera
+from physically_based_ray_tracer_tpu.scene.lights import LightSet as JLightSet
+from physically_based_ray_tracer_tpu.scene.procedural import (make_quad,
+                                                              make_sphere)
+from physically_based_ray_tracer_tpu.scene.scene import Instance as JInstance
+from physically_based_ray_tracer_tpu.scene.scene import MeshModel as JMeshModel
+from physically_based_ray_tracer_tpu.scene.scene import build_scene_instanced
+from physically_based_ray_tracer_tpu_torch import config as tconfig
+from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
+from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance,
+                                                               MeshModel,
+                                                               scene_from_numpy)
+
+# The whole slice at test size: 2 bounces, AA, one shadow ray, f32 engine.
+SLICE_CFG = RenderConfig(width=16, height=16, bounces=2, antialias=True,
+                         skybox=False, accumulate=False, traversal="pallas",
+                         leaf_precision="f32", one_shadow_ray=True)
+
+
+def port_config(jcfg):
+    """The port's RenderConfig / BRDFConfig with the field values of the
+    JAX package's ``jcfg`` (enums mapped by value)."""
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        x = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(x):
+            x = port_config(x)
+        elif isinstance(x, enum.Enum):
+            x = getattr(tconfig, type(x).__name__)(x.value)
+        kw[f.name] = x
+    return getattr(tconfig, type(jcfg).__name__)(**kw)
+
+
+def scene_arrays(jscene) -> dict:
+    """np.asarray of every field of a JAX SceneData (scene_from_numpy input)."""
+    out = {}
+    for name in jscene._fields:
+        x = getattr(jscene, name)
+        if name == "bvh":
+            continue
+        if name in ("dense", "lights"):
+            out[name] = {k: np.asarray(getattr(x, k)) for k in x._fields
+                         if getattr(x, k) is not None}
+        else:
+            out[name] = np.asarray(x)
+    return out
+
+
+def port_scene(jscene):
+    return scene_from_numpy(scene_arrays(jscene))
+
+
+def port_camera(jcam):
+    return Camera.make(np.asarray(jcam.pos), np.asarray(jcam.target),
+                       float(jcam.fov), float(jcam.distortion))
+
+
+def port_models(jmodels):
+    return [MeshModel(**{f.name: getattr(m, f.name)
+                         for f in dataclasses.fields(m)}) for m in jmodels]
+
+
+def port_instances(jinstances):
+    return [Instance(**{f.name: getattr(i, f.name)
+                        for f in dataclasses.fields(i)}) for i in jinstances]
+
+
+def instanced_parts():
+    """(models, instances, lights, camera) of a small two-level scene, in
+    the JAX package's types: 3 transformed sphere instances + a floor."""
+    sphere = JMeshModel.from_fat(make_sphere(radius=1.0, lat=8, lon=12),
+                                 base_color=(0.8, 0.3, 0.2), roughness=0.4,
+                                 metalness=0.2)
+    floor = JMeshModel.from_fat(
+        make_quad([-6, -1, -6], [6, -1, -6], [6, -1, 6], [-6, -1, 6]),
+        base_color=(0.6, 0.6, 0.6), roughness=0.8)
+    instances = [JInstance(0, position=(-2.0, 0.0, 0.0)),
+                 JInstance(0, position=(0.5, 0.2, -1.0), rotation=(0.3, 0.7, 0.1),
+                           scale=(0.8, 1.2, 0.9)),
+                 JInstance(0, position=(2.2, -0.2, 0.8), scale=(0.6, 0.6, 0.6)),
+                 JInstance(1)]
+    lights = JLightSet.make(
+        point_pos=[[2, 3, 2], [-2, 3, -1]], point_color=[[20, 20, 20], [10, 12, 14]],
+        dir_pos=[[5, 8, 3]], dir_color=[[1.5, 1.4, 1.2]],
+        spot_pos=[[0, 4, 0]], spot_color=[[8, 8, 8]], spot_rot=[[0, -1, 0]],
+    ).pad_points(4)
+    cam = JCamera.make(pos=(0, 2.0, 6), target=(0, 0, 0))
+    return [sphere, floor], instances, lights, cam
+
+
+def instanced_scene():
+    """The JAX package's two-level build of instanced_parts()."""
+    models, instances, lights, cam = instanced_parts()
+    scene, _, _ = build_scene_instanced(models, instances, lights,
+                                        legacy_bvh=False, flatten=False)
+    return scene, cam
