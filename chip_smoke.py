@@ -6,36 +6,58 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
-port's traversal kernel from
-``physically_based_ray_tracer_tpu_torch/csrc/traverse_f32.cu`` (into
+port's two traversal kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32
+engine) and ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
+``RenderConfig`` default), with one ``nvcc`` each, started together (into
 ``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
-   the kernel build time;
-2. kernel vs plain: on the benchmark scene (two-level, as flatten="auto"
-   builds it, and flattened to one level) and three 131,072-ray sets
-   (primary rays of an AA-doubled chunk of pixels drawn over the whole
-   frame, bounce-like rays from surface
-   points, shadow rays with finite tmax, ~20% of them 0) it holds the
-   kernel's closest and occlusion results against the plain PyTorch
-   version: equal found masks, t within 1e-6 relative, equal prim/instance
-   except where the plain version sees a t-tie (a second candidate within
-   1e-6 relative), equal occlusion masks, no truncated ray;
-3. times: median of 10 CUDA-event runs of the kernel and of the plain
-   version on the 131,072-ray sets (two-level table), and of the kernel
-   alone on the one-level table;
-4. main path: ``Renderer`` on the benchmark frame (1280x720, 4 bounces,
-   AA, NEE with one shadow ray, f32 engine): one warm-up and 3 timed
-   ``tick``s, launch counts (closest and any > 0, plain version 0), a finite
-   image; then one chunk of 4096 pixels drawn over the frame, rendered on
-   the GPU (kernel) and on the
-   CPU (plain version) with the same key must agree on >= 99% of pixels
-   within rtol=2e-4, atol=2e-5 (the two devices' transcendental functions
-   differ in the last bits, and a t-tie may pick another triangle);
-5. prints the kernels' JSON line, the card line and, last,
+   the kernel build times;
+2. B1 vs its plain version: on the benchmark scene (two-level, as
+   flatten="auto" builds it, and flattened to one level) and three
+   131,072-ray sets (primary rays of an AA-doubled chunk of pixels drawn over
+   the whole frame, bounce-like rays from surface points, shadow rays with
+   finite tmax, ~20% of them 0): equal found masks, t within 1e-6 relative,
+   equal prim/instance except where the plain version sees a t-tie, equal
+   occlusion masks, no truncated ray;
+3. B2 vs its plain version on the same tables and rays, both run on the
+   main path's co-sorted rays (the sort wrappers' order, which sets the
+   sweep lanes): equal found masks, winner keys, instances and decoded prims,
+   and bit-equal t where the keys agree, outside the near-tie lanes (another
+   group's best, or tmax, within 2^-6 relative after the later of the
+   winner's t and its group's box entry: there the order groups are visited
+   in may pick another winner); equal certain / needs-retest / final
+   occlusion masks outside the near-tmax lanes (an accept whose t or group
+   box entry lies within 2^-6 below tmax or beyond it); the sorted wrappers
+   return exactly the
+   kernel's decoded result; no truncated ray. Prints the near-tie and
+   near-tmax counts;
+4. B2 vs B1 on the same rays, the reference's own precision contract:
+   occlusion mismatch < 0.5% on every set; found-mask mismatch < 0.5% and the
+   same prim on > 97% of rays that both hit on the primary rays, the ray
+   class the contract was written for (on the bounce and shadow sets the
+   JAX engine itself gives 1.5% and 0.4% found mismatch: printed, not gated);
+5. times: median of CUDA-event runs, 10 of each kernel and 3 of each plain
+   version, on the 131,072-ray sets (two-level table), and of B1 alone on the
+   one-level table;
+6. the main path with the default configuration (bf16 engine): ``Renderer``
+   on the benchmark frame (1280x720, 4 bounces, AA, NEE with one shadow ray):
+   one warm-up and 3 timed ``tick``s with the counts set to 0 just before:
+   B2 closest and any launched, plain versions never called, a finite image;
+7. the main path with ``leaf_precision="f32"``: one warm-up and one timed
+   tick, B1 closest and any launched, plain versions never called; the bf16
+   frame vs the f32 frame (their first ticks, same key) within the JAX
+   package's contract (MSE < 2e-3, < 3% of pixels off by > 0.05);
+8. GPU vs CPU: a chunk of pixels drawn over the frame rendered on the GPU
+   (kernels) and on the CPU (plain versions) with the same key, per engine:
+   4096 pixels with the f32 engine (>= 99% of pixels allclose at rtol 2e-4,
+   atol 2e-5) and 1536 with the bf16 engine (>= 98%; its plain version is
+   ~2.5x slower on the CPU);
+9. prints the kernels' JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises, and the script exits non-zero without that line.
+Every phase prints its wall time. Any failed phase raises, and the script
+exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -50,9 +72,16 @@ import time
 import numpy as np
 
 N_RAYS = 131072
-KERNEL_SRC = "physically_based_ray_tracer_tpu_torch/csrc/traverse_f32.cu"
-REPLACES = "physically_based_ray_tracer_tpu/ops/pallas_trace.py:102"
+PKG = "physically_based_ray_tracer_tpu_torch"
+KERNELS = {
+    "traverse_f32": (f"{PKG}/csrc/traverse_f32.cu",
+                     "physically_based_ray_tracer_tpu/ops/pallas_trace.py:102"),
+    "traverse_bf16": (f"{PKG}/csrc/traverse_bf16.cu",
+                      "physically_based_ray_tracer_tpu/ops/pallas_bf16.py:175"),
+}
 T_RTOL = 1e-6
+BF16_CHUNK = 1536
+F32_CHUNK = 4096
 
 
 def _smi() -> str:
@@ -64,6 +93,23 @@ def _smi() -> str:
 def _check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+class _Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        print(f"== {self.name}", flush=True)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        print(f"== {self.name}: {time.perf_counter() - self.t0:.1f} s"
+              + (" (failed)" if exc[0] else ""), flush=True)
+        return False
 
 
 def _ray_sets(scene, cam, cfg, dev, seed=0):
@@ -126,7 +172,7 @@ def _frame_pixels(cfg, n, gen) -> np.ndarray:
 
 
 def _plain_hit(dbvh, o, d, tm):
-    """Plain version mapped like the kernel wrapper, plus its tie mask."""
+    """B1's plain version mapped like the kernel wrapper, plus its tie mask."""
     from physically_based_ray_tracer_tpu_torch.ops import trace
     *raw, t2 = trace.plain_traverse(dbvh, o, d, tm, closest=True)
     hit = trace.to_hit(dbvh, *raw)
@@ -135,8 +181,8 @@ def _plain_hit(dbvh, o, d, tm):
     return found, hit.t, hit.prim, hit.inst, tie
 
 
-def _compare(name, dbvh, o, d, tm, report):
-    """Kernel (through the main path's sorted wrappers) vs plain version."""
+def _compare_f32(name, dbvh, o, d, tm, report):
+    """B1 (through the main path's sorted wrappers) vs its plain version."""
     import torch
     from physically_based_ray_tracer_tpu_torch.ops import trace
     hit = trace.sorted_closest_dense(dbvh, o, d, tm)
@@ -156,13 +202,100 @@ def _compare(name, dbvh, o, d, tm, report):
         prim_mismatch=int(((hit.prim != prim_p) & same).sum()),
         inst_mismatch=int(((hit.inst != inst_p) & same).sum()),
         occluded=int(occ_p.sum()), occ_mismatch=int((occ_k != occ_p).sum()))
-    print(f"  {name}: {json.dumps(r)}", flush=True)
+    print(f"  B1 {name}: {json.dumps(r)}", flush=True)
     report.append(r)
     _check(r["found_mismatch"] == 0, f"{name}: found masks differ")
     _check(r["t_max_rel"] <= T_RTOL, f"{name}: t differs by {r['t_max_rel']}")
     _check(r["prim_mismatch"] == 0 and r["inst_mismatch"] == 0,
            f"{name}: prim/inst differ outside t-ties")
     _check(r["occ_mismatch"] == 0, f"{name}: occlusion masks differ")
+
+
+def _compare_bf16(name, dbvh, o, d, tm, report):
+    """B2 vs its plain version on the co-sorted rays (the sweep lanes the
+    main path gives them), and the sorted wrappers vs the kernel's own
+    decoded result."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16 as tb
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+    # closest
+    t_k, gk_k, i_k = tb._call_bf16(dbvh, o_s, d_s, tm_s, closest=True)
+    t_p, gk_p, i_p, near = tb.plain_traverse_bf16(dbvh, o_s, d_s, tm_s, True)
+    hk = tb._decode_fast(dbvh, t_k, gk_k, i_k)
+    hp = tb._decode_fast(dbvh, t_p, gk_p, i_p)
+    wrapped = tb.sorted_closest_bf16(dbvh, o, d, tm, refine="fast")
+    unsorted = [trace._unsort(perm, x) for x in hk]
+    same_key = (gk_k == gk_p) & (i_k == i_p)
+    found_k, found_p = gk_k >= 0, gk_p >= 0
+    # any
+    cert_k, unc_k = tb._call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
+    cert_p, unc_p, near_tm = tb.plain_traverse_bf16(dbvh, o_s, d_s, tm_s, False)
+    need_k, need_p = unc_k & ~cert_k, unc_p & ~cert_p
+    occ_k = tb.sorted_any_bf16(dbvh, o, d, tm)
+    exact = trace.plain_traverse(dbvh, o_s, d_s, torch.where(need_p, tm_s, 0.0), False)
+    occ_p = trace._unsort(perm, cert_p | (need_p & exact))
+    near_tm_u = trace._unsort(perm, near_tm)
+    torch.cuda.synchronize()
+    out = ~near
+    r = dict(
+        found=int(found_p.sum()), found_mismatch=int(((found_k != found_p) & out).sum()),
+        found_mismatch_near=int(((found_k != found_p) & near).sum()),
+        near_tie=int(near.sum()),
+        key_mismatch=int((~same_key & out).sum()),
+        prim_mismatch=int(((hk.prim != hp.prim) & out).sum()),
+        t_max_abs=float((t_k - t_p).abs()[same_key].max()) if same_key.any() else 0.0,
+        wrapper_mismatch=int(sum(int((a != b).sum()) for a, b in zip(wrapped, unsorted))),
+        certain=int(cert_p.sum()), need_retest=int(need_p.sum()),
+        near_tmax=int(near_tm.sum()),
+        cert_mismatch=int(((cert_k != cert_p) & ~near_tm).sum()),
+        need_mismatch=int(((need_k != need_p) & ~near_tm).sum()),
+        occ_mismatch=int(((occ_k != occ_p) & ~near_tm_u).sum()),
+        occ_mismatch_near=int(((occ_k != occ_p) & near_tm_u).sum()))
+    print(f"  B2 {name}: {json.dumps(r)}", flush=True)
+    report.append(r)
+    bad = ((found_k != found_p) | ~same_key) & out
+    bad = torch.nonzero(bad | ((need_k != need_p) & ~near_tm)).flatten()[:8]
+    for i in bad.tolist():
+        print(f"    lane {i}: kernel t {float(t_k[i])!r} gk {int(gk_k[i])} inst "
+              f"{int(i_k[i])}; plain t {float(t_p[i])!r} gk {int(gk_p[i])} inst "
+              f"{int(i_p[i])}; tmax {float(tm_s[i])!r}; o {o_s[i].tolist()} d "
+              f"{d_s[i].tolist()}", flush=True)
+    _check(r["found_mismatch"] == 0, f"{name}: B2 found masks differ outside "
+           "near-tie lanes")
+    _check(r["key_mismatch"] == 0 and r["prim_mismatch"] == 0,
+           f"{name}: B2 winner keys / prims differ outside near-tie lanes")
+    _check(r["t_max_abs"] == 0.0, f"{name}: B2 t differs where the keys agree")
+    _check(r["wrapper_mismatch"] == 0, f"{name}: sorted_closest_bf16 differs "
+           "from the kernel's decoded result")
+    _check(r["cert_mismatch"] == 0 and r["need_mismatch"] == 0
+           and r["occ_mismatch"] == 0,
+           f"{name}: B2 occlusion masks differ outside near-tmax lanes")
+
+
+def _contract_bf16_vs_f32(name, dbvh, o, d, tm, report, closest_gate):
+    """The JAX package's precision contract of the bf16 engine against the
+    exact f32 one (tests/test_pallas_bf16.py). Its closest-hit half holds for
+    the ray class it was written for, camera rays (``closest_gate``); rays
+    leaving a surface lose more hits in bf16 (the JAX engine gives the same
+    rates on these sets), so there it is printed, not gated."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16 as tb
+    h16 = tb.sorted_closest_bf16(dbvh, o, d, tm)
+    h32 = trace.sorted_closest_dense(dbvh, o, d, tm)
+    occ16 = tb.sorted_any_bf16(dbvh, o, d, tm)
+    occ32 = trace.sorted_any_dense(dbvh, o, d, tm)
+    torch.cuda.synchronize()
+    f16, f32 = h16.prim >= 0, h32.prim >= 0
+    both = f16 & f32
+    r = dict(found_mismatch=float((f16 != f32).float().mean()),
+             same_prim=float(((h16.prim == h32.prim) & both).sum() / both.sum().clamp(min=1)),
+             occ_mismatch=float((occ16 != occ32).float().mean()))
+    print(f"  B2 vs B1 {name}: {json.dumps(r)}", flush=True)
+    report.append(r)
+    if closest_gate:
+        _check(r["found_mismatch"] < 0.005, f"{name}: bf16 vs f32 found mismatch")
+        _check(r["same_prim"] > 0.97, f"{name}: bf16 vs f32 prim agreement")
+    _check(r["occ_mismatch"] < 0.005, f"{name}: bf16 vs f32 occlusion mismatch")
 
 
 def _time_ms(fn, runs=10):
@@ -181,6 +314,48 @@ def _time_ms(fn, runs=10):
     return statistics.median(times)
 
 
+def _frame(renderer, ticks, counters):
+    """Warm-up tick (its image kept) + ``ticks`` timed ticks, with the launch
+    and plain-call counts set to 0 just before and read just after."""
+    import torch
+    for c in counters:
+        c.reset_counts()
+    t0 = time.perf_counter()
+    first = renderer.tick(0)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    ms = []
+    img = first
+    for _ in range(ticks):
+        t0 = time.perf_counter()
+        img = renderer.tick(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {c.__name__.rsplit(".", 1)[1]: (dict(c.LAUNCHES), dict(c.PLAIN_CALLS))
+              for c in counters}
+    return first, img, warm, ms, counts
+
+
+def _chunk_gpu_vs_cpu(renderer, cfg, n, frac, what):
+    """render_sample of ``n`` pixels on the GPU (kernels) and on the CPU
+    (plain versions), same key; >= ``frac`` of pixels allclose."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample
+    dev = renderer.device
+    ids = torch.from_numpy(_frame_pixels(cfg, n, np.random.default_rng(1))).to(dev)
+    c_gpu, _ = render_sample(renderer.scene, renderer.camera, cfg, 0, 0, ids)
+    t0 = time.perf_counter()
+    c_cpu, _ = render_sample(renderer.scene.to("cpu"), renderer.camera.to("cpu"), cfg,
+                             0, 0, ids.cpu())
+    close = np.isclose(c_gpu.cpu().numpy(), c_cpu.numpy(), rtol=2e-4,
+                       atol=2e-5).all(axis=1)
+    print(f"{n}-pixel chunk, {what}, kernels (GPU) vs plain (CPU, "
+          f"{time.perf_counter() - t0:.1f} s): {close.mean() * 100:.3f}% pixels "
+          f"allclose, mean abs diff {float((c_gpu.cpu() - c_cpu).abs().mean()):.3e}",
+          flush=True)
+    _check(close.mean() >= frac, f"{what}: kernel and plain chunk images disagree")
+
+
 def main() -> int:
     import torch
 
@@ -189,11 +364,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from physically_based_ray_tracer_tpu_torch import RenderConfig
-    from physically_based_ray_tracer_tpu_torch.ops import _build, trace
-    from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample
+    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
     from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
 
@@ -205,112 +380,145 @@ def main() -> int:
     print(f"card: {card}", flush=True)
 
     # 1. build
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"({_build.BUILD_INFO['path']})", flush=True)
-    print(_build.BUILD_INFO["log"], flush=True)
+    with _Phase("build"):
+        _build.build_all()
+        for name in _build.SOURCES:
+            _build.load(name)
+            info = _build.BUILD_INFO[name]
+            print(f"{name}: {info['seconds']:.2f} s ({info['path']})\n{info['log']}",
+                  flush=True)
 
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
-                       skybox=False, traversal="pallas", leaf_precision="f32",
-                       one_shadow_ray=True, chunk_pixels=65536)
-    t0 = time.perf_counter()
-    scene2, cam, _ = build_bench_scene(flatten="auto", device=dev)
-    scene1, _, _ = build_bench_scene(flatten=True, device=dev)
-    print(f"scenes built in {time.perf_counter() - t0:.1f} s: two-level "
-          f"{scene2.dense.n_nodes} nodes / {scene2.dense.n_groups} groups / "
-          f"{scene2.dense.n_instances} instances (stack need "
-          f"{scene2.dense.stack_need}); one-level {scene1.dense.n_nodes} nodes / "
-          f"{scene1.dense.n_groups} groups (stack need {scene1.dense.stack_need})",
-          flush=True)
-    _check(scene2.dense.two_level and not scene1.dense.two_level,
-           "flatten='auto' must keep the bench scene two-level")
+                       skybox=False, one_shadow_ray=True, chunk_pixels=65536)
+    _check(cfg.leaf_precision == "bf16", "the default engine is bf16")
+    with _Phase("scenes"):
+        scene2, cam, _ = build_bench_scene(flatten="auto", device=dev)
+        scene1, _, _ = build_bench_scene(flatten=True, device=dev)
+        print(f"two-level {scene2.dense.n_nodes} nodes / {scene2.dense.n_groups} "
+              f"groups / {scene2.dense.n_instances} instances (stack need "
+              f"{scene2.dense.stack_need}); one-level {scene1.dense.n_nodes} nodes / "
+              f"{scene1.dense.n_groups} groups (stack need {scene1.dense.stack_need})",
+              flush=True)
+        _check(scene2.dense.two_level and not scene1.dense.two_level,
+               "flatten='auto' must keep the bench scene two-level")
+        sets = _ray_sets(scene2, cam, cfg, dev)
+    tables = (("two-level", scene2), ("one-level", scene1))
 
-    # 2. kernel vs plain
-    report = []
-    sets = _ray_sets(scene2, cam, cfg, dev)
-    for tname, sc in (("two-level", scene2), ("one-level", scene1)):
-        for sname, (o, d, tm) in sets.items():
-            _compare(f"{tname}/{sname}", sc.dense, o, d, tm, report)
-    trunc = trace.truncated_rays(dev)
-    print(f"truncated rays: {trunc}", flush=True)
-    _check(trunc == 0, f"{trunc} rays hit the step bound or the stack cap")
+    # 2-4. kernels vs plain versions, bf16 vs f32
+    rep_f32, rep_bf16, rep_contract = [], [], []
+    with _Phase("B1 vs plain"):
+        for tname, sc in tables:
+            for sname, (o, d, tm) in sets.items():
+                _compare_f32(f"{tname}/{sname}", sc.dense, o, d, tm, rep_f32)
+        _check(trace.truncated_rays(dev) == 0, "B1 truncated rays")
+    with _Phase("B2 vs plain"):
+        for tname, sc in tables:
+            for sname, (o, d, tm) in sets.items():
+                _compare_bf16(f"{tname}/{sname}", sc.dense, o, d, tm, rep_bf16)
+        trunc = trace_bf16.truncated_rays(dev)
+        print(f"B2 truncated rays: {trunc}", flush=True)
+        _check(trunc == 0, f"{trunc} rays hit B2's step bound or stack cap")
+    with _Phase("B2 vs B1 (precision contract)"):
+        for tname, sc in tables:
+            for sname, (o, d, tm) in sets.items():
+                _contract_bf16_vs_f32(f"{tname}/{sname}", sc.dense, o, d, tm,
+                                      rep_contract, sname == "primary")
 
-    # 3. times at the main path's shapes (rays co-sorted as the main path
-    # does): kernel and plain version on the main path's two-level table,
-    # the kernel alone on the flattened one-level table
+    # 5. times at the main path's shapes, on co-sorted rays
     times = {}
-    for sname, (o, d, tm) in sets.items():
-        for tname, sc in (("two-level", scene2), ("one-level", scene1)):
-            dbvh = sc.dense
-            _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
-            for mode in ("closest", "any"):
-                closest = mode == "closest"
-                if closest:
-                    kfn = lambda: trace.intersect_closest_dense(dbvh, o_s, d_s, tm_s)
-                else:
-                    kfn = lambda: trace.intersect_any_dense(dbvh, o_s, d_s, tm_s)
-                k_ms = _time_ms(kfn)
-                line = f"time {mode:7s} {sname:7s} {N_RAYS} rays, {tname}: kernel {k_ms:.4f} ms"
-                if tname == "two-level":
-                    p_ms = _time_ms(lambda: trace.plain_traverse(dbvh, o_s, d_s, tm_s, closest))
-                    times[(sname, mode)] = (k_ms, p_ms)
-                    line += f", plain {p_ms:.2f} ms"
-                print(f"{line} [{card}]", flush=True)
+    with _Phase("times"):
+        for sname, (o, d, tm) in sets.items():
+            for tname, sc in tables:
+                dbvh = sc.dense
+                _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+                for mode in ("closest", "any"):
+                    closest = mode == "closest"
+                    runs = [("f32", lambda: trace._traverse(dbvh, o_s, d_s, tm_s, closest),
+                             lambda: trace.plain_traverse(dbvh, o_s, d_s, tm_s, closest))]
+                    if tname == "two-level":
+                        runs.append(("bf16",
+                                     lambda: trace_bf16._call_bf16(dbvh, o_s, d_s, tm_s, closest),
+                                     lambda: trace_bf16.plain_traverse_bf16(
+                                         dbvh, o_s, d_s, tm_s, closest)))
+                    for eng, kfn, pfn in runs:
+                        k_ms = _time_ms(kfn)
+                        line = (f"time {eng:4s} {mode:7s} {sname:7s} {N_RAYS} rays, "
+                                f"{tname}: kernel {k_ms:.4f} ms")
+                        if tname == "two-level":
+                            p_ms = _time_ms(pfn, runs=3)
+                            times[(eng, sname, mode)] = (k_ms, p_ms)
+                            line += f", plain {p_ms:.2f} ms"
+                        print(f"{line} [{card}]", flush=True)
 
-    # 4. the main path
-    renderer = Renderer(scene2, cam, cfg, device=dev)
-    trace.reset_counts()
-    t0 = time.perf_counter()
-    renderer.tick(0)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    frame_ms = []
-    img = None
-    for _ in range(3):
-        t0 = time.perf_counter()
-        img = renderer.tick(0)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(trace.LAUNCHES)
-    plain_calls = sum(trace.PLAIN_CALLS.values())
-    print(f"frame 1280x720 4 bounces AA f32: warm-up {warm:.2f} s, median "
-          f"{statistics.median(frame_ms):.2f} ms over {frame_ms} [{card}]", flush=True)
-    print(f"main path (4 frames): kernel launches {launches}, plain-version "
-          f"calls {plain_calls}", flush=True)
-    _check(launches["closest"] > 0 and launches["any"] > 0,
-           "the main path did not launch both kernel modes")
-    _check(plain_calls == 0, "the main path called the plain version")
-    _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
-           "image not finite or of the wrong shape")
-    print(f"image finite, mean {float(img.mean()):.6f}", flush=True)
-    trunc = trace.truncated_rays(dev)
-    _check(trunc == 0, f"{trunc} rays truncated on the main path")
+    # 6. the main path, default configuration (bf16 engine)
+    with _Phase("main path, bf16 (default config)"):
+        r16 = Renderer(scene2, cam, cfg, device=dev)
+        first16, img, warm, ms, counts = _frame(r16, 3, (trace, trace_bf16))
+        launches16 = counts["trace_bf16"][0]
+        plain16 = sum(sum(c[1].values()) for c in counts.values())
+        print(f"frame 1280x720 4 bounces AA bf16: warm-up {warm:.2f} s, median "
+              f"{statistics.median(ms):.2f} ms over {ms} [{card}]", flush=True)
+        print(f"main path (4 frames): B2 launches {launches16}, B1 launches "
+              f"{counts['trace'][0]} (uncertain-lane retests), plain-version calls "
+              f"{plain16}", flush=True)
+        _check(launches16["closest"] > 0 and launches16["any"] > 0,
+               "the bf16 main path did not launch both B2 modes")
+        _check(plain16 == 0, "the bf16 main path called a plain version")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               "bf16 image not finite or of the wrong shape")
+        print(f"image finite, mean {float(img.mean()):.6f}", flush=True)
+        _check(trace_bf16.truncated_rays(dev) == 0 and trace.truncated_rays(dev) == 0,
+               "rays truncated on the bf16 main path")
 
-    ids = torch.from_numpy(_frame_pixels(cfg, 4096, np.random.default_rng(1))).to(dev)
-    c_gpu, t_gpu = render_sample(renderer.scene, renderer.camera, cfg, 0, 0, ids)
-    cpu_scene = renderer.scene.to("cpu")
-    t0 = time.perf_counter()
-    c_cpu, t_cpu = render_sample(cpu_scene, renderer.camera.to("cpu"), cfg, 0, 0,
-                                 ids.cpu())
-    close = np.isclose(c_gpu.cpu().numpy(), c_cpu.numpy(), rtol=2e-4,
-                       atol=2e-5).all(axis=1)
-    print(f"4096-pixel chunk, kernel (GPU) vs plain (CPU, {time.perf_counter() - t0:.1f} s):"
-          f" {close.mean() * 100:.3f}% pixels allclose, mean abs diff "
-          f"{float((c_gpu.cpu() - c_cpu).abs().mean()):.3e}", flush=True)
-    _check(close.mean() >= 0.99, "kernel and plain chunk images disagree")
+    # 7. the main path with the f32 engine, and bf16 vs f32 frames
+    with _Phase("main path, f32"):
+        cfg32 = cfg.replace(leaf_precision="f32")
+        r32 = Renderer(scene2, cam, cfg32, device=dev)
+        first32, img, warm, ms, counts = _frame(r32, 1, (trace, trace_bf16))
+        launches32 = counts["trace"][0]
+        plain32 = sum(sum(c[1].values()) for c in counts.values())
+        print(f"frame 1280x720 4 bounces AA f32: warm-up {warm:.2f} s, "
+              f"{ms[0]:.2f} ms [{card}]", flush=True)
+        print(f"main path (2 frames): B1 launches {launches32}, B2 launches "
+              f"{counts['trace_bf16'][0]}, plain-version calls {plain32}", flush=True)
+        _check(launches32["closest"] > 0 and launches32["any"] > 0,
+               "the f32 main path did not launch both B1 modes")
+        _check(sum(counts["trace_bf16"][0].values()) == 0, "the f32 path launched B2")
+        _check(plain32 == 0, "the f32 main path called a plain version")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               "f32 image not finite or of the wrong shape")
+        _check(trace.truncated_rays(dev) == 0, "rays truncated on the f32 main path")
+        diff = np.abs(first16 - first32).max(axis=-1)
+        mse = float(np.mean((first16 - first32) ** 2))
+        off = float((diff > 0.05).mean())
+        print(f"bf16 vs f32 frame (first ticks, same key): MSE {mse:.3e}, "
+              f"{off * 100:.3f}% pixels off by > 0.05", flush=True)
+        _check(mse < 2e-3 and off < 0.03, "bf16 frame vs f32 frame contract")
 
-    # 5. result lines
-    def err(mode):
+    # 8. GPU vs CPU chunks
+    with _Phase("GPU vs CPU chunks"):
+        _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
+        _chunk_gpu_vs_cpu(r16, cfg, BF16_CHUNK, 0.98, "bf16 engine")
+
+    # 9. result lines
+    def err(eng, mode):
+        if eng == "f32":
+            return (max(r["t_max_abs"] for r in rep_f32) if mode == "closest"
+                    else float(any(r["occ_mismatch"] for r in rep_f32)))
         if mode == "closest":
-            return max(r["t_max_abs"] for r in report)
-        return float(any(r["occ_mismatch"] for r in report))   # boolean output
+            return max(r["t_max_abs"] for r in rep_bf16)
+        return float(any(r["occ_mismatch"] for r in rep_bf16))
 
-    kernels = [{"name": f"traverse_f32_{mode}", "route": "cuda", "source": KERNEL_SRC,
-                "replaces": REPLACES, "launches": launches[mode],
-                "max_abs_err": err(mode),
-                "ms": times[(sname, mode)][0], "plain_ms": times[(sname, mode)][1]}
-               for mode, sname in (("closest", "bounce"), ("any", "shadow"))]
+    kernels = []
+    for eng, launches in (("f32", launches32), ("bf16", launches16)):
+        src, replaces = KERNELS[f"traverse_{eng}"]
+        for mode, sname in (("closest", "bounce"), ("any", "shadow")):
+            k_ms, p_ms = times[(eng, sname, mode)]
+            kernels.append({"name": f"traverse_{eng}_{mode}", "route": "cuda",
+                            "source": src, "replaces": replaces,
+                            "launches": launches[mode], "max_abs_err": err(eng, mode),
+                            "ms": k_ms, "plain_ms": p_ms})
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ builds tables byte-identical to the JAX package's (a test pins that). Only
 the container differs: ``DenseBVH`` holds torch tensors and moves with
 ``.to(device)``.
 
-Layouts (shared with the traversal kernel, ``csrc/traverse_f32.cu``):
+Layouts (shared with the traversal kernels, ``csrc/traverse_f32.cu`` and
+``csrc/traverse_bf16.cu``):
   * ``nodes16`` (N*16,) f32, per node:
       [c0min(3), c0max(3), c1min(3), c1max(3), child0, child1, pad, pad]
     children stored as floats (exact for |code| < 2^24):
@@ -26,9 +27,16 @@ Layouts (shared with the traversal kernel, ``csrc/traverse_f32.cu``):
     1-float stub instead.
   * ``prim_base`` (max(I,1),) i32: per-instance offset from mesh-local to
     scene-global primitive ids.
+  * ``groups_bf`` (G*32, 128) bf16, the bf16 engine's leaf table: row 2*i + b
+    of group g is component i (v0 - glo, e1, e2: leaf-local) pre-rolled
+    right by (b*c)//2 lanes (band b of 2). ``glo`` (G*8,) f32: per group
+    [lo.xyz, 0, hi.xyz, 0], the AABB of its live triangles. ``pids_c``
+    (G*C,) f32: the c distinct prim ids of group g at [g*C, g*C + c), padded
+    with -1 (C = the largest period). f32 -> bf16 rounds to nearest even,
+    as ``ml_dtypes`` does for the JAX package.
 
-The bf16 leaf packing (``groups_bf``/``glo``/``pids_c``), ``refresh_tlas``
-and the native SBVH core are not ported: none is on the f32 path.
+``refresh_tlas`` and the native SBVH core are not ported: neither is on the
+main path.
 """
 
 from __future__ import annotations
@@ -96,17 +104,30 @@ class DenseBVH:
     world_lo: torch.Tensor   # (3,) f32 root bounds (Morton ray sorting)
     world_hi: torch.Tensor   # (3,) f32
     stack_need: int          # stack_need() of these tables
+    groups_bf: torch.Tensor | None = None   # (G*32, 128) bf16
+    glo: torch.Tensor | None = None         # (G*8,) f32
+    pids_c: torch.Tensor | None = None      # (G*C,) f32
 
     @staticmethod
     def from_numpy(nodes16, groups, inst16, prim_base, world_lo, world_hi,
+                   groups_bf=None, glo=None, pids_c=None,
                    device="cpu") -> "DenseBVH":
+        """Tables from numpy arrays. ``groups_bf`` is a torch bf16 tensor or
+        any 2-byte numpy array of bf16 bits (e.g. the JAX package's
+        ``ml_dtypes.bfloat16`` array): its bits are taken as they are."""
         def t(x, dtype):
             return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
+        if groups_bf is not None and not isinstance(groups_bf, torch.Tensor):
+            bits = np.ascontiguousarray(groups_bf).view(np.int16)
+            groups_bf = torch.from_numpy(bits.copy()).view(torch.bfloat16)
         return DenseBVH(
             nodes16=t(nodes16, np.float32), groups=t(groups, np.float32),
             inst16=t(inst16, np.float32), prim_base=t(prim_base, np.int32),
             world_lo=t(world_lo, np.float32), world_hi=t(world_hi, np.float32),
-            stack_need=stack_need(nodes16, inst16))
+            stack_need=stack_need(nodes16, inst16),
+            groups_bf=None if groups_bf is None else groups_bf.to(device),
+            glo=None if glo is None else t(glo, np.float32),
+            pids_c=None if pids_c is None else t(pids_c, np.float32))
 
     def to(self, device) -> "DenseBVH":
         return dataclasses.replace(
@@ -297,6 +318,70 @@ def _pack_groups(tri: np.ndarray, segments: list[np.ndarray]) -> np.ndarray:
 # single-level stub: shorter than one INST_F row, so the traversal runs
 # without any instance machinery
 _NO_INST = np.zeros((1,), np.float32)
+
+# bf16 banded-group constants (the bf16 engine, ops/trace_bf16.py): 9
+# geometry components x 2 bands (band 1 = band 0 pre-rolled by c/2), padded
+# to 32 rows.
+BF_BANDS = 2
+BF_ROWS = 32
+
+
+def _group_period(pid_row: np.ndarray) -> int:
+    """Replication period c of one group's prim-id row (c | 128)."""
+    for c in (1, 2, 4, 8, 16, 32, 64, 128):
+        if np.array_equal(pid_row, np.tile(pid_row[:c], 128 // c)):
+            return c
+    return 128
+
+
+def _pack_groups_bf(groups: np.ndarray):
+    """The banded bf16 leaf table + per-group boxes + compact prim-id table,
+    derived from the f32 component-major groups array (the period c is
+    recovered from the prim-id row's replication pattern).
+
+    Band b of component i sits at row BF_BANDS*i + b, pre-rolled right by
+    (b*c)//BF_BANDS lanes: at sweep iteration k, ray lane l in band b
+    tests original lane (l - k - (b*c)//BF_BANDS) mod 128 -- over
+    k = 0..max(c/BF_BANDS,1)-1 the bands cover every distinct triangle of
+    the group exactly (duplicates when c < BF_BANDS are harmless).
+
+    Returns (groups_bf as a bf16 tensor, glo (G*8,) f32, pids_c (G*C,) f32).
+    """
+    G = groups.shape[0] // GROUP_ROWS
+    gview = groups.reshape(G, GROUP_ROWS, LEAF_W)
+    pidrow = gview[:, 9, :]                               # (G, 128)
+    c_arr = np.full(G, LEAF_W, np.int64)
+    for c in (64, 32, 16, 8, 4, 2, 1):
+        eq = np.all(pidrow == np.tile(pidrow[:, :c], (1, LEAF_W // c)),
+                    axis=1)
+        c_arr[eq] = c
+    comps = gview[:, 0:9, :].copy()                       # (G, 9, 128)
+    v0 = comps[:, 0:3, :]
+    corners = np.concatenate(
+        [v0, v0 + comps[:, 3:6, :], v0 + comps[:, 6:9, :]], axis=2)
+    live3 = np.tile(pidrow >= 0, (1, 3))[:, None, :]      # (G, 1, 384)
+    lo = np.where(live3, corners, np.inf).min(axis=2)     # (G, 3)
+    hi = np.where(live3, corners, -np.inf).max(axis=2)
+    any_live = (pidrow >= 0).any(axis=1)[:, None]
+    lo = np.where(any_live, lo, 0.0).astype(np.float32)
+    hi = np.where(any_live, hi, 0.0).astype(np.float32)
+    glo = np.zeros((G, 8), np.float32)     # [lo3, 0, hi3, 0] per group
+    glo[:, 0:3] = lo
+    glo[:, 4:7] = hi
+    comps[:, 0:3, :] -= lo[:, :, None]                    # local v0
+    out = np.zeros((G, BF_ROWS, LEAF_W), np.float32)
+    lanes = np.arange(LEAF_W)
+    for b in range(BF_BANDS):
+        shift = (b * c_arr) // BF_BANDS                   # (G,)
+        src = (lanes[None, None, :] - shift[:, None, None]) % LEAF_W
+        out[:, BF_BANDS * np.arange(9) + b, :] = np.take_along_axis(
+            comps, np.broadcast_to(src, comps.shape), axis=2)
+    out_bf = torch.from_numpy(out.reshape(G * BF_ROWS, LEAF_W)).to(torch.bfloat16)
+    C = int(c_arr.max()) if G else 1
+    pids_c = np.where(np.arange(C)[None, :] < c_arr[:, None],
+                      pidrow[:, :C], -1.0).astype(np.float32)
+    return out_bf, glo.reshape(-1), pids_c.reshape(-1)
+
 
 # Leaf shaping (CombineLeafs/SplitLeafs analogue) driven by the TPU kernel's
 # cost model: a leaf visit costs a fixed overhead plus ceil_pow2(count) sweep
@@ -539,8 +624,10 @@ def build_dense(triangles: np.ndarray, leaf_target: int = 64,
     nodes, segments, depth, root_lo, root_hi = _build_core_any(
         tri, leaf_target, shape)
     groups = _pack_groups(tri, segments)
+    gbf, glo, pids_c = _pack_groups_bf(groups)
     dbvh = DenseBVH.from_numpy(nodes.reshape(-1), groups, _NO_INST,
-                               np.zeros((1,), np.int32), root_lo, root_hi)
+                               np.zeros((1,), np.int32), root_lo, root_hi,
+                               groups_bf=gbf, glo=glo, pids_c=pids_c)
     return dbvh, depth
 
 
@@ -694,8 +781,10 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
     meta = TLASMeta(tlas_cap=tlas_cap, inst_mesh=inst_mesh,
                     blas_root=node_off.copy(), blas_lo=blas_lo,
                     blas_hi=blas_hi)
+    gbf, glo, pids_c = _pack_groups_bf(all_groups)
     dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups,
                                inst16.reshape(-1), prim_base,
-                               lo.min(axis=0), hi.max(axis=0))
+                               lo.min(axis=0), hi.max(axis=0),
+                               groups_bf=gbf, glo=glo, pids_c=pids_c)
     depth = tlas_cap.bit_length() + depth_blas + 2
     return dbvh, meta, depth

@@ -78,8 +78,8 @@ class BRDFConfig:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Runtime render flags. The port carries ``traversal="pallas"`` with
-    ``leaf_precision="f32"`` (the exact engine, not this class's default)
-    and refuses the values it does not carry; see
+    both engines (``leaf_precision="bf16"``, the default, and ``"f32"``) and
+    refuses the values it does not carry; see
     ``render.integrator.check_supported``."""
 
     width: int = 1280

@@ -1,0 +1,139 @@
+// The node and TLAS phase shared by the traversal kernels traverse_f32.cu (B1)
+// and traverse_bf16.cu (B2): one thread per ray, a DenseBVH walked with a
+// per-thread stack, leaves handed to a leaf visitor.
+//
+// Semantics copied exactly from the TPU kernels (ops/pallas_trace.py and
+// ops/pallas_bf16.py of the JAX package): the sign-preserving 1e-20
+// reciprocal, the slab test (tn <= tf && tf > 0 && tn < t_clip && t_clip > 0),
+// rejection of ABSENT children by code, the child-code decoding, the instance
+// enter (world ray transformed in the same operation order, RESTORE sentinel
+// pushed) and restore, and the step bound max_steps = 8*N*(I+1)+64. A ray that
+// hits the step bound or the stack cap is reported as truncated, never dropped
+// silently. Compiled without fast math and with --fmad=false, so that the f32
+// arithmetic matches the plain PyTorch versions bit for bit.
+//
+// A leaf visitor provides
+//   float clip() const;                      the slab clip of the next node test
+//   bool visit(int gv, int inst, const Ray&); sweep triangle leaf gv = group*8 +
+//                                             log2(c) in the current ray space;
+//                                             true ends the walk (ray done).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pbrt {
+
+constexpr int NODE_F = 16;
+constexpr int GROUP_ROWS = 16;
+constexpr int LEAF_W = 128;
+constexpr int INST_F = 16;
+constexpr int RESTORE_ID = (1 << 22) - 1;
+constexpr int RESTORE_CODE = -(2 * RESTORE_ID + 2);
+constexpr int ABSENT = -(1 << 30);
+constexpr int DONE = 0x7FFFFFFF;
+constexpr int STACK_CAP = 64;
+constexpr int BLOCK = 128;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, rdx, rdy, rdz;
+};
+
+__device__ __forceinline__ float rcp_safe(float d) {
+  const float eps = 1e-20f;
+  return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
+}
+
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx,
+                                        float dy, float dz) {
+  return Ray{ox, oy, oz, dx, dy, dz, rcp_safe(dx), rcp_safe(dy), rcp_safe(dz)};
+}
+
+__device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
+                                     float hx, float hy, float hz, float t_clip,
+                                     float* tn_out) {
+  const float tx0 = (lx - r.ox) * r.rdx;
+  const float tx1 = (hx - r.ox) * r.rdx;
+  const float ty0 = (ly - r.oy) * r.rdy;
+  const float ty1 = (hy - r.oy) * r.rdy;
+  const float tz0 = (lz - r.oz) * r.rdz;
+  const float tz1 = (hz - r.oz) * r.rdz;
+  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  *tn_out = tn;
+  return (tn <= tf) && (tf > 0.0f) && (tn < t_clip) && (t_clip > 0.0f);
+}
+
+// Walks the tables for one ray; returns true if the ray was truncated (step
+// bound or stack cap). ORDERED: descend into the nearer child first (by the
+// ray's own slab entry), else child 0 first. A ray with tmax <= 0 passes no
+// slab test and accepts no triangle, so it does not walk at all.
+template <bool ORDERED, class Leaf>
+__device__ __forceinline__ bool walk(const float* __restrict__ nodes,
+                                     const float* __restrict__ inst16, int two_level,
+                                     const Ray& world, float tmax, int max_steps,
+                                     Leaf& leaf) {
+  Ray r = world;  // world space, or the entered instance's object space
+  int stack[STACK_CAP];
+  int sp = 0, cur = 0, inst = -1, steps = 0;
+  while (tmax > 0.0f) {
+    if (steps >= max_steps) return true;
+    ++steps;
+    int nxt = DONE;
+    if (cur >= 0) {
+      const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
+      const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
+      const float t_clip = leaf.clip();
+      const int c0 = (int)e.x, c1 = (int)e.y;
+      float tn0, tn1;
+      const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, t_clip, &tn0) && c0 != ABSENT;
+      const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, t_clip, &tn1) && c1 != ABSENT;
+      if (h0 && h1) {
+        const bool swap = ORDERED && tn1 < tn0;
+        if (sp >= STACK_CAP) return true;
+        stack[sp++] = swap ? c0 : c1;
+        nxt = swap ? c1 : c0;
+      } else if (h0) {
+        nxt = c0;
+      } else if (h1) {
+        nxt = c1;
+      }
+    } else {
+      const int v = -(cur + 1);
+      if (two_level && (v & 1)) {
+        const int iid = v >> 1;
+        if (iid == RESTORE_ID) {
+          r = world;
+          inst = -1;
+        } else {
+          if (sp >= STACK_CAP) return true;
+          stack[sp++] = RESTORE_CODE;
+          const float* m = inst16 + (size_t)iid * INST_F;
+          const float wx = world.ox, wy = world.oy, wz = world.oz;
+          const float wdx = world.dx, wdy = world.dy, wdz = world.dz;
+          r = make_ray(m[0] * wx + m[1] * wy + m[2] * wz + m[3],
+                       m[4] * wx + m[5] * wy + m[6] * wz + m[7],
+                       m[8] * wx + m[9] * wy + m[10] * wz + m[11],
+                       m[0] * wdx + m[1] * wdy + m[2] * wdz,
+                       m[4] * wdx + m[5] * wdy + m[6] * wdz,
+                       m[8] * wdx + m[9] * wdy + m[10] * wdz);
+          inst = iid;
+          nxt = (int)m[12];
+        }
+      } else if (leaf.visit(v >> 1, inst, r)) {
+        return false;
+      }
+    }
+    if (nxt == DONE) {
+      if (sp == 0) break;
+      nxt = stack[--sp];
+    }
+    cur = nxt;
+  }
+  return false;
+}
+
+inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }
+
+}  // namespace pbrt

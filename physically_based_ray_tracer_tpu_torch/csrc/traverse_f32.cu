@@ -1,4 +1,5 @@
-// Exact f32 BVH traversal of a DenseBVH (one- or two-level), one thread per ray.
+// Kernel B1: exact f32 BVH traversal of a DenseBVH (one- or two-level), one
+// thread per ray.
 //
 // Replaces the TPU kernel physically_based_ray_tracer_tpu/ops/pallas_trace.py
 // ::_traverse_kernel (the "f32 engine", leaf_precision="f32"), in its two
@@ -29,54 +30,70 @@
 // decisions, the pltpu.roll cyclic lane sweep, the HBM leaf-queue DMA
 // ping-pong, and the SMEM/VMEM placement limits.
 //
-// Semantics copied exactly from the TPU kernel: the sign-preserving 1e-20
-// reciprocal, the slab test (tn <= tf && tf > 0 && tn < t_clip && t_clip > 0),
-// rejection of ABSENT children by code, near-first descent, the child-code
-// decoding, the instance enter (world ray transformed in the same operation
-// order, RESTORE sentinel pushed) and restore, Möller-Trumbore with
+// Semantics copied exactly from the TPU kernel: the node and TLAS phase of
+// traverse_common.cuh (shared with the bf16 kernel), and Möller-Trumbore with
 // |det| > 1e-9, u, v >= 0, u + v <= 1, t > 0, a strict t < t_best in closest
-// mode and t < tmax in occlusion mode, and the step bound
-// max_steps = 8*N*(I+1)+64. Built without fast math and with --fmad=false so
-// that it matches the plain PyTorch version (ops/trace.py) to the last bit,
-// except on exact t-ties. A ray that hits the step bound or the stack cap is
-// counted in *truncated, never dropped silently.
+// mode and t < tmax in occlusion mode. Built without fast math and with
+// --fmad=false so that it matches the plain PyTorch version (ops/trace.py) to
+// the last bit, except on exact t-ties. Both modes descend into the nearer
+// child first.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "traverse_common.cuh"
 
 namespace {
 
-constexpr int NODE_F = 16;
-constexpr int GROUP_ROWS = 16;
-constexpr int LEAF_W = 128;
-constexpr int INST_F = 16;
-constexpr int RESTORE_ID = (1 << 22) - 1;
-constexpr int RESTORE_CODE = -(2 * RESTORE_ID + 2);
-constexpr int ABSENT = -(1 << 30);
-constexpr int DONE = 0x7FFFFFFF;
-constexpr int STACK_CAP = 64;
-constexpr int BLOCK = 128;
+using namespace pbrt;
 
-__device__ __forceinline__ float rcp_safe(float d) {
-  const float eps = 1e-20f;
-  return 1.0f / (fabsf(d) < eps ? (d < 0.0f ? -eps : eps) : d);
-}
+// Tests the c distinct triangles (slots 0..c-1) of a leaf group in f32.
+template <bool CLOSEST>
+struct LeafF32 {
+  const float* __restrict__ groups;
+  float tmax;
+  float t_best, best_u, best_v;
+  int best_prim, best_inst;
+  bool occluded;
 
-__device__ __forceinline__ bool slab(float ox, float oy, float oz, float rdx,
-                                     float rdy, float rdz, float lx, float ly,
-                                     float lz, float hx, float hy, float hz,
-                                     float t_clip, float* tn_out) {
-  const float tx0 = (lx - ox) * rdx;
-  const float tx1 = (hx - ox) * rdx;
-  const float ty0 = (ly - oy) * rdy;
-  const float ty1 = (hy - oy) * rdy;
-  const float tz0 = (lz - oz) * rdz;
-  const float tz1 = (hz - oz) * rdz;
-  const float tn = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-  const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-  *tn_out = tn;
-  return (tn <= tf) && (tf > 0.0f) && (tn < t_clip) && (t_clip > 0.0f);
-}
+  // occlusion mode leaves the walk as soon as it is occluded, so its clip is
+  // tmax on every step it takes
+  __device__ float clip() const { return CLOSEST ? t_best : tmax; }
+
+  __device__ bool visit(int gv, int inst, const Ray& r) {
+    const int count = 1 << (gv & 7);
+    const float* g = groups + (size_t)(gv >> 3) * GROUP_ROWS * LEAF_W;
+    for (int j = 0; j < count; ++j) {
+      const float* s = g + j;
+      const float v0x = s[0 * LEAF_W], v0y = s[1 * LEAF_W], v0z = s[2 * LEAF_W];
+      const float e1x = s[3 * LEAF_W], e1y = s[4 * LEAF_W], e1z = s[5 * LEAF_W];
+      const float e2x = s[6 * LEAF_W], e2y = s[7 * LEAF_W], e2z = s[8 * LEAF_W];
+      const float px = r.dy * e2z - r.dz * e2y;
+      const float py = r.dz * e2x - r.dx * e2z;
+      const float pz = r.dx * e2y - r.dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const bool det_ok = fabsf(det) > 1e-9f;
+      const float inv = 1.0f / (det_ok ? det : 1.0f);
+      const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+      const float uu = (tx * px + ty * py + tz * pz) * inv;
+      const float qx = ty * e1z - tz * e1y;
+      const float qy = tz * e1x - tx * e1z;
+      const float qz = tx * e1y - ty * e1x;
+      const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+      const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
+      const bool ok = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+                      tt > 0.0f;
+      if (CLOSEST) {
+        if (ok && tt < t_best) {
+          t_best = tt; best_u = uu; best_v = vv;
+          best_prim = (int)s[9 * LEAF_W];
+          best_inst = inst;
+        }
+      } else if (ok && tt < tmax) {
+        occluded = true;
+        return true;
+      }
+    }
+    return false;
+  }
+};
 
 template <bool CLOSEST>
 __global__ void __launch_bounds__(BLOCK)
@@ -90,131 +107,22 @@ traverse_kernel(const float* __restrict__ nodes, const float* __restrict__ group
                 int* __restrict__ truncated) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
-
-  const float wx = orig[3 * i], wy = orig[3 * i + 1], wz = orig[3 * i + 2];
-  const float wdx = dir[3 * i], wdy = dir[3 * i + 1], wdz = dir[3 * i + 2];
+  const Ray world = make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
+                             dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   const float tmax = tmax_in[i];
-  const float wrdx = rcp_safe(wdx), wrdy = rcp_safe(wdy), wrdz = rcp_safe(wdz);
-
-  // current ray: world space, or the entered instance's object space
-  float ox = wx, oy = wy, oz = wz, dx = wdx, dy = wdy, dz = wdz;
-  float rdx = wrdx, rdy = wrdy, rdz = wrdz;
-
-  float t_best = tmax, best_u = 0.0f, best_v = 0.0f;
-  int best_prim = -1, best_inst = -1;
-  bool occluded = false, trunc = false;
-
-  int stack[STACK_CAP];
-  int sp = 0, cur = 0, inst = -1, steps = 0;
-
-  // a ray with tmax <= 0 passes no slab test and accepts no triangle
-  while (tmax > 0.0f) {
-    if (steps >= max_steps) { trunc = true; break; }
-    ++steps;
-    int nxt = DONE;
-    if (cur >= 0) {
-      const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
-      const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
-      // occlusion mode leaves the loop as soon as it is occluded, so its clip
-      // is tmax on every step it takes
-      const float t_clip = CLOSEST ? t_best : tmax;
-      const int c0 = (int)e.x, c1 = (int)e.y;
-      float tn0, tn1;
-      const bool h0 = slab(ox, oy, oz, rdx, rdy, rdz, a.x, a.y, a.z, a.w, b.x, b.y,
-                           t_clip, &tn0) && c0 != ABSENT;
-      const bool h1 = slab(ox, oy, oz, rdx, rdy, rdz, b.z, b.w, c.x, c.y, c.z, c.w,
-                           t_clip, &tn1) && c1 != ABSENT;
-      if (h0 && h1) {
-        const bool swap = tn1 < tn0;
-        if (sp >= STACK_CAP) { trunc = true; break; }
-        stack[sp++] = swap ? c0 : c1;
-        nxt = swap ? c1 : c0;
-      } else if (h0) {
-        nxt = c0;
-      } else if (h1) {
-        nxt = c1;
-      }
-    } else {
-      const int v = -(cur + 1);
-      if (two_level && (v & 1)) {
-        const int iid = v >> 1;
-        if (iid == RESTORE_ID) {
-          ox = wx; oy = wy; oz = wz; dx = wdx; dy = wdy; dz = wdz;
-          rdx = wrdx; rdy = wrdy; rdz = wrdz;
-          inst = -1;
-        } else {
-          if (sp >= STACK_CAP) { trunc = true; break; }
-          stack[sp++] = RESTORE_CODE;
-          const float* m = inst16 + (size_t)iid * INST_F;
-          ox = m[0] * wx + m[1] * wy + m[2] * wz + m[3];
-          oy = m[4] * wx + m[5] * wy + m[6] * wz + m[7];
-          oz = m[8] * wx + m[9] * wy + m[10] * wz + m[11];
-          dx = m[0] * wdx + m[1] * wdy + m[2] * wdz;
-          dy = m[4] * wdx + m[5] * wdy + m[6] * wdz;
-          dz = m[8] * wdx + m[9] * wdy + m[10] * wdz;
-          rdx = rcp_safe(dx); rdy = rcp_safe(dy); rdz = rcp_safe(dz);
-          inst = iid;
-          nxt = (int)m[12];
-        }
-      } else {
-        // triangle leaf: v >> 1 = group * 8 + log2(period c)
-        const int gv = v >> 1;
-        const int count = 1 << (gv & 7);
-        const float* g = groups + (size_t)(gv >> 3) * GROUP_ROWS * LEAF_W;
-        for (int j = 0; j < count; ++j) {
-          const float* s = g + j;
-          const float v0x = s[0 * LEAF_W], v0y = s[1 * LEAF_W], v0z = s[2 * LEAF_W];
-          const float e1x = s[3 * LEAF_W], e1y = s[4 * LEAF_W], e1z = s[5 * LEAF_W];
-          const float e2x = s[6 * LEAF_W], e2y = s[7 * LEAF_W], e2z = s[8 * LEAF_W];
-          const float px = dy * e2z - dz * e2y;
-          const float py = dz * e2x - dx * e2z;
-          const float pz = dx * e2y - dy * e2x;
-          const float det = e1x * px + e1y * py + e1z * pz;
-          const bool det_ok = fabsf(det) > 1e-9f;
-          const float inv = 1.0f / (det_ok ? det : 1.0f);
-          const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-          const float uu = (tx * px + ty * py + tz * pz) * inv;
-          const float qx = ty * e1z - tz * e1y;
-          const float qy = tz * e1x - tx * e1z;
-          const float qz = tx * e1y - ty * e1x;
-          const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-          const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
-          const bool ok = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                          tt > 0.0f;
-          if (CLOSEST) {
-            if (ok && tt < t_best) {
-              t_best = tt; best_u = uu; best_v = vv;
-              best_prim = (int)s[9 * LEAF_W];
-              best_inst = inst;
-            }
-          } else if (ok && tt < tmax) {
-            occluded = true;
-            break;
-          }
-        }
-        if (!CLOSEST && occluded) break;
-      }
-    }
-    if (nxt == DONE) {
-      if (sp == 0) break;
-      nxt = stack[--sp];
-    }
-    cur = nxt;
-  }
-
-  if (trunc) atomicAdd(truncated, 1);
+  LeafF32<CLOSEST> leaf{groups, tmax, tmax, 0.0f, 0.0f, -1, -1, false};
+  if (walk<true>(nodes, inst16, two_level, world, tmax, max_steps, leaf))
+    atomicAdd(truncated, 1);
   if (CLOSEST) {
-    t_out[i] = t_best;
-    u_out[i] = best_u;
-    v_out[i] = best_v;
-    prim_out[i] = best_prim;
-    inst_out[i] = best_inst;
+    t_out[i] = leaf.t_best;
+    u_out[i] = leaf.best_u;
+    v_out[i] = leaf.best_v;
+    prim_out[i] = leaf.best_prim;
+    inst_out[i] = leaf.best_inst;
   } else {
-    occ_out[i] = occluded ? 1 : 0;
+    occ_out[i] = leaf.occluded ? 1 : 0;
   }
 }
-
-inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
 

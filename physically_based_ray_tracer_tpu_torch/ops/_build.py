@@ -1,11 +1,14 @@
 """Builds and loads the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/traverse_f32.cu`` into a shared library with a plain
-C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The library goes to ``build/torch_kernels/`` at the repository
-root, named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Nothing is built or loaded at
-import: ``load()`` runs at the first kernel launch.
+``nvcc`` compiles each source of ``csrc/`` (``traverse_f32.cu``, kernel B1;
+``traverse_bf16.cu``, kernel B2) into a shared library of its own with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The libraries go to ``build/torch_kernels/`` at the
+repository root, each named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. Nothing is built or loaded at import: the first
+``load()`` builds every missing library at once, one ``nvcc`` per source,
+all started together.
 """
 
 from __future__ import annotations
@@ -20,15 +23,37 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "traverse_f32.cu"
+CSRC = _PKG / "csrc"
+SOURCES = {name: CSRC / f"{name}.cu" for name in ("traverse_f32", "traverse_bf16")}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # exact IEEE arithmetic (no fast math, no FMA contraction) so that the
-# kernel matches its plain PyTorch version bit for bit
+# kernels match their plain PyTorch versions bit for bit
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v"]
 
-_LIB: ctypes.CDLL | None = None
-BUILD_INFO: dict = {}
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# C entry points of each library: name -> (argtypes, restype)
+_SIGNATURES = {
+    "traverse_f32": {
+        "pbrt_trace_stack_cap": ([], _i),
+        "pbrt_trace_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_trace_closest_f32": ([_p, _p, _p, _i, _p, _p, _p, _i, _i,
+                                    _p, _p, _p, _p, _p, _p, _p], _i),
+        "pbrt_trace_any_f32": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p], _i),
+    },
+    "traverse_bf16": {
+        "pbrt_trace_bf16_stack_cap": ([], _i),
+        "pbrt_trace_bf16_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_trace_closest_bf16": ([_p, _p, _p, _p, _i, _p, _p, _p, _i, _i,
+                                     _p, _p, _p, _p, _p], _i),
+        "pbrt_trace_any_bf16": ([_p, _p, _p, _p, _i, _p, _p, _p, _i, _i,
+                                 _p, _p, _p, _p], _i),
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# per library: path, build seconds, nvcc's output (ptxas register counts)
+BUILD_INFO: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -41,49 +66,56 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME or PATH)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"traverse_f32-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        tmp_out = Path(tmp) / out.name
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_out, out)      # atomic: a concurrent loader sees all or nothing
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
+def build_all() -> None:
+    """Build every library that is missing, one nvcc per source, in parallel."""
+    todo = {name: library_path(name) for name in SOURCES}
+    todo = {name: out for name, out in todo.items() if not out.exists()}
+    for name in SOURCES:
+        if name not in todo:
+            BUILD_INFO.setdefault(name, dict(path=str(library_path(name)),
+                                             seconds=0.0, log="(cached build)"))
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(Path(tmp) / out.name), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, out in todo.items()}
+        failed = []
+        for name, proc in procs.items():
+            log, _ = proc.communicate()
+            BUILD_INFO[name] = dict(path=str(todo[name]), log=log.strip(),
+                                    seconds=time.perf_counter() - t0)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name} "
+                              f"({proc.returncode}):\n{log}")
+                continue
+            # atomic: a concurrent loader sees all or nothing
+            os.replace(Path(tmp) / todo[name].name, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    path = library_path()
-    if not path.exists():
-        _compile(path)
-    else:
-        BUILD_INFO.setdefault("seconds", 0.0)
-        BUILD_INFO.setdefault("log", "(cached build)")
-    BUILD_INFO["path"] = str(path)
-    lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pbrt_trace_stack_cap.argtypes = []
-    lib.pbrt_trace_stack_cap.restype = i
-    lib.pbrt_trace_error_string.argtypes = [i]
-    lib.pbrt_trace_error_string.restype = ctypes.c_char_p
-    lib.pbrt_trace_closest_f32.argtypes = [p, p, p, i, p, p, p, i, i,
-                                           p, p, p, p, p, p, p]
-    lib.pbrt_trace_closest_f32.restype = i
-    lib.pbrt_trace_any_f32.argtypes = [p, p, p, i, p, p, p, i, i, p, p, p]
-    lib.pbrt_trace_any_f32.restype = i
-    _LIB = lib
+def load(name: str) -> ctypes.CDLL:
+    """The library of kernel source ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all()
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    _LIBS[name] = lib
     return lib

@@ -39,12 +39,13 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def truncated_rays(device) -> int:
-    """Rays the kernel cut short on ``device`` so far (synchronises)."""
+def truncated_rays(device, counts=_TRUNCATED) -> int:
+    """Rays the kernel cut short on ``device`` so far (synchronises);
+    ``counts`` is the kernel's per-device counter store."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    c = _TRUNCATED.get(device)
+    c = counts.get(device)
     return 0 if c is None else int(c.item())
 
 
@@ -71,27 +72,34 @@ def _check_rays(dbvh: DenseBVH, o, d, t_max):
             raise ValueError(f"dbvh.{name} must be contiguous float32 on {dev}")
 
 
+def launch_args(dbvh: DenseBVH, o, d, t_max, stack_cap: int, counts: dict):
+    """What every traversal kernel launch needs, checked: contiguous rays,
+    the device's truncation counter (created in ``counts`` on first use)
+    and the current stream. Refuses a table whose stack need exceeds the
+    kernel's ``stack_cap`` or whose node table is not 16-byte aligned (the
+    kernels load nodes as float4)."""
+    if dbvh.stack_need > stack_cap:
+        raise ValueError(f"BVH needs a traversal stack of {dbvh.stack_need} "
+                         f"entries; the kernel holds {stack_cap}")
+    if dbvh.nodes16.data_ptr() % 16:
+        raise ValueError("dbvh.nodes16 must be 16-byte aligned")
+    dev = o.device
+    trunc = counts.get(dev)
+    if trunc is None:
+        trunc = counts[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return o.contiguous(), d.contiguous(), t_max.contiguous(), trunc, stream
+
+
 def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
     """Launch the CUDA kernel on the current stream; returns raw outputs."""
     from physically_based_ray_tracer_tpu_torch.ops import _build
 
-    lib = _build.load()
-    cap = lib.pbrt_trace_stack_cap()
-    if dbvh.stack_need > cap:
-        raise ValueError(f"BVH needs a traversal stack of {dbvh.stack_need} "
-                         f"entries; the kernel holds {cap}")
-    if dbvh.nodes16.data_ptr() % 16:
-        raise ValueError("dbvh.nodes16 must be 16-byte aligned")
+    lib = _build.load("traverse_f32")
+    o, d, t_max, trunc, stream = launch_args(dbvh, o, d, t_max,
+                                             lib.pbrt_trace_stack_cap(), _TRUNCATED)
     dev = o.device
-    o = o.contiguous()
-    d = d.contiguous()
-    t_max = t_max.contiguous()
     B = o.shape[0]
-    trunc = _TRUNCATED.get(dev)
-    if trunc is None:
-        trunc = _TRUNCATED[dev] = torch.zeros((1,), dtype=torch.int32,
-                                              device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     common = (dbvh.nodes16.data_ptr(), dbvh.groups.data_ptr(),
               dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(),
               d.data_ptr(), t_max.data_ptr(), B, max_steps(dbvh))

@@ -1,0 +1,564 @@
+"""bf16-sweep dense-BVH traversal (the bf16 engine, ``leaf_precision="bf16"``);
+counterpart of ``physically_based_ray_tracer_tpu/ops/pallas_bf16.py``.
+
+The node and TLAS phase is the exact f32 one of ``ops/trace.py``; only the
+leaf visit differs. A visited leaf group is swept in bf16 in leaf-local
+coordinates: the ray is re-originated at the group box entry in f32, cast to
+bf16, and tested against the pre-rolled 2-band table ``groups_bf``
+(``bvh/dense.py``) with the reference's arithmetic accept masks
+(``_bf16_mt``): a 0.02-barycentric apron with a 5% t penalty, |det| and t
+ramps, all in bf16. Closest mode returns the bf16 best t, a winner key
+``gk = ((group*8 + log2 c)*64 + k)*2 + band`` and the instance; ``_decode_*``
+turn the key back into a prim. Occlusion mode returns certain / uncertain
+masks; ``_resolve_uncertain`` settles the uncertain lanes with the exact f32
+traversal (``ops/trace.py``, kernel B1).
+
+The absolute accept margins (``y*1e4``, ``|det|*1e8 - 0.01``, ``t*1e4``)
+assume a scene near unit scale, as in the reference, which has no guard for
+other scales either; the port copies them for parity.
+
+The wrappers dispatch on the rays' device, as ``ops/trace.py`` does:
+  * CUDA tensors launch the hand-written kernel ``csrc/traverse_bf16.cu``
+    (built at first use by ``ops/_build.py``) or raise;
+  * CPU tensors run ``plain_traverse_bf16``, a brute force over the same
+    tables with the kernel's bf16 arithmetic (each bf16 operation computed
+    in f32 and rounded to bf16, as both frameworks do on the CPU).
+``LAUNCHES`` / ``PLAIN_CALLS`` count the two.
+
+The kernel gives ray ``i`` of a launch the sweep lane ``i mod 128``, the
+lane the TPU tile gives it, so its winner keys decode exactly as the
+reference's do. Decoding therefore runs in the order the kernel saw: the
+sorted wrappers decode in sorted order and scatter back. The reference's
+``_gated_decode`` slices the decode only to skip dead TPU tiles; the fast
+decode is gather-only and exact under slicing, so the port decodes at full
+width.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from physically_based_ray_tracer_tpu_torch.bvh.dense import (ABSENT, BF_ROWS,
+                                                             GROUP_ROWS,
+                                                             INST_F, LEAF_W,
+                                                             NODE_F, DenseBVH)
+from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
+from physically_based_ray_tracer_tpu_torch.ops import trace
+from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
+
+APRON = 0.02            # barycentric accept apron (see _bf16_mt)
+GLO_SMEM_LIMIT = 8192   # the reference's group-count limit of the bf16 engine
+REFINE_WIN = 1          # the reference's default refine window (winner only)
+# relative t band within which the order groups are visited in (TPU tile,
+# GPU thread, plain brute force) may pick another winner or verdict
+NEAR_BAND = 2.0 ** -6
+
+LAUNCHES = {"closest": 0, "any": 0}
+PLAIN_CALLS = {"closest": 0, "any": 0}
+# per-device int32 count of rays that hit the step bound or the stack cap
+_TRUNCATED: dict[torch.device, torch.Tensor] = {}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def truncated_rays(device) -> int:
+    """Rays kernel B2 cut short on ``device`` so far (synchronises)."""
+    return trace.truncated_rays(device, _TRUNCATED)
+
+
+def has_bf16_tables(dbvh: DenseBVH) -> bool:
+    return dbvh.groups_bf is not None and dbvh.glo is not None
+
+
+def _check_tables(dbvh: DenseBVH, dev) -> None:
+    if not has_bf16_tables(dbvh):
+        raise ValueError("DenseBVH carries no bf16 tables (groups_bf, glo)")
+    for name, dtype in (("groups_bf", torch.bfloat16), ("glo", torch.float32)):
+        x = getattr(dbvh, name)
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"dbvh.{name} must be contiguous {dtype} on {dev}")
+
+
+def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
+    """Launch kernel B2 on the current stream; returns raw outputs."""
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    lib = _build.load("traverse_bf16")
+    o, d, t_max, trunc, stream = trace.launch_args(
+        dbvh, o, d, t_max, lib.pbrt_trace_bf16_stack_cap(), _TRUNCATED)
+    dev = o.device
+    B = o.shape[0]
+    common = (dbvh.nodes16.data_ptr(), dbvh.groups_bf.data_ptr(),
+              dbvh.glo.data_ptr(), dbvh.inst16.data_ptr(), int(dbvh.two_level),
+              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), B,
+              trace.max_steps(dbvh))
+    if closest:
+        t = torch.empty((B,), dtype=torch.float32, device=dev)
+        gk = torch.empty((B,), dtype=torch.int32, device=dev)
+        inst = torch.empty_like(gk)
+        err = lib.pbrt_trace_closest_bf16(*common, t.data_ptr(), gk.data_ptr(),
+                                          inst.data_ptr(), trunc.data_ptr(),
+                                          stream)
+        out = (t, gk, inst)
+    else:
+        cert = torch.empty((B,), dtype=torch.bool, device=dev)
+        unc = torch.empty_like(cert)
+        err = lib.pbrt_trace_any_bf16(*common, cert.data_ptr(), unc.data_ptr(),
+                                      trunc.data_ptr(), stream)
+        out = (cert, unc)
+    if err != 0:
+        raise RuntimeError("traverse_bf16 launch failed: "
+                           + lib.pbrt_trace_bf16_error_string(err).decode())
+    LAUNCHES["closest" if closest else "any"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain version: brute force over the same tables, the kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+def _bf(x: float, device) -> torch.Tensor:
+    """A bf16 constant as the reference rounds it (f32, then nearest even)."""
+    return torch.tensor(x, dtype=torch.float32, device=device).to(torch.bfloat16)
+
+
+def _bf16_mt(o3, d3, comps, K):
+    """2-band bf16 Möller-Trumbore, operation for operation as the reference
+    (and the kernel) computes it; every operation rounds to bf16. Returns
+    (tt, m, r_in, min_uv): local t, the u/v/det accept mask, the interiorness
+    ramp of the apron penalty, and the smallest barycentric."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = comps
+    one, zero = K["1"], K["0"]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    adet = torch.abs(det)
+    r = one / torch.maximum(adet, K["1e-8"])
+    inv = det * r * r
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    uu = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * inv
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv
+    min_uv = torch.minimum(torch.minimum(uu, vv), one - uu - vv)
+    y = min_uv + K["apron"]
+    m = torch.maximum(torch.minimum(y * K["1e4"], one), zero)
+    m_det = torch.maximum(torch.minimum(adet * K["1e8"] - K["0.01"], one), zero)
+    r_in = torch.maximum(torch.minimum(min_uv * K["1/apron"] + one, one), zero)
+    return tt, m * m_det, r_in, min_uv
+
+
+def bf16_constants(device) -> dict:
+    return {name: _bf(x, device) for name, x in (
+        ("0", 0.0), ("1", 1.0), ("1e-8", 1e-8), ("1e4", 1e4), ("1e8", 1e8),
+        ("0.01", 0.01), ("apron", APRON), ("1/apron", 1.0 / APRON),
+        ("0.05", 0.05), ("1e30", 1e30))}
+
+
+def _leaf_boxes(nodes: np.ndarray, root: int) -> dict[int, np.ndarray]:
+    """group -> its leaf's box in the parent node, [lo.xyz, hi.xyz], for the
+    triangle leaves under ``root`` (instance leaves are not followed)."""
+    out, stack = {}, [root]
+    while stack:
+        n = stack.pop()
+        for side in range(2):
+            code = int(np.rint(nodes[n, 12 + side]))
+            if code >= 0:
+                stack.append(code)
+            elif code != ABSENT and (-(code + 1)) % 2 == 0:
+                out[(-(code + 1)) // 2 // 8] = nodes[n, 6 * side:6 * side + 6]
+    return out
+
+
+def _space_table(dbvh: DenseBVH, root: int, nodes: np.ndarray) -> dict:
+    """The sweep candidates of the triangle leaves under ``root``, in group
+    order: candidate j = (group, iteration k, band b) with its group slot,
+    winner key and in-group rank, and the bf16 components every lane tests
+    for it, ``comps[lane, i, j] = groups_bf[32g + 2i + b, (lane - k) mod 128]``;
+    per group its ``glo`` box and its leaf-node box."""
+    leaves = sorted(trace._leaves(nodes, root))
+    boxes = _leaf_boxes(nodes, root)
+    dev = dbvh.groups_bf.device
+    slot, key, rank, rows, ks = [], [], [], [], []
+    for gi, (g, c) in enumerate(leaves):
+        log2c = c.bit_length() - 1
+        for k in range(max(c // 2, 1)):
+            for b in range(2):
+                slot.append(gi)
+                key.append(((g * 8 + log2c) * 64 + k) * 2 + b)
+                rank.append(gi * 128 + 127 - (2 * k + b))
+                rows.append([g * BF_ROWS + 2 * i + b for i in range(9)])
+                ks.append(k)
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
+    rows_t, ks_t = as_t(rows).reshape(-1, 9), as_t(ks)
+    lanes = torch.arange(LEAF_W, device=dev)
+    cols = torch.remainder(lanes[:, None] - ks_t[None, :], LEAF_W)   # (128, K)
+    comps = dbvh.groups_bf[rows_t.T[None, :, :], cols[:, None, :]]    # (128, 9, K)
+    gidx = as_t([g for g, _ in leaves])
+    glo = dbvh.glo.reshape(-1, 8)[gidx] if leaves else \
+        torch.zeros((0, 8), device=dev)
+    node_box = torch.as_tensor(np.array([boxes[g] for g, _ in leaves], np.float32)
+                               .reshape(-1, 6), device=dev)
+    return dict(slot=as_t(slot), key=as_t(key), rank=as_t(rank), comps=comps,
+                glo=glo, node_box=node_box, n_groups=len(leaves))
+
+
+def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
+                        band: float = NEAR_BAND):
+    """The plain PyTorch version of kernel B2, on any device.
+
+    A brute force over every triangle leaf of each object space (instances
+    in order), with the kernel's per-lane box gate, re-origin, bf16
+    arithmetic, sweep lanes (ray i sweeps as lane i mod 128) and in-group
+    tie rules. Across groups it goes in group order and keeps a candidate
+    only if strictly smaller, as the kernel does in its visit order.
+
+    Closest mode returns (t, gk, inst, near_tie): the kernel's raw outputs
+    (t = t_max, gk = inst = -1 where nothing was accepted; inst = -1 for
+    single-level tables) and the lanes where the order groups are visited
+    in may pick another winner. A traversal visits a group only if its
+    leaf's f32 slab test passes (the node box, which may be an ulp tighter
+    than the ``glo`` box of the lane gate) with an entry before the running
+    best (t_max at first). So the winning group can be skipped, or an equal
+    candidate met first, only if the ray misses the winner's leaf-node box,
+    or another group's best or t_max lies within ``band`` (relative) after
+    the later of the winner's t and its group's box entry. (An apron hit can
+    lie before its group's box entry.)
+
+    Occlusion mode returns (cert, unc, near_tmax): the certain and the
+    uncertain (apron-zone) accept masks, and the lanes with an accept from
+    a group whose leaf-node box the ray misses, or whose bf16 t or box entry
+    lies within ``band`` below t_max or beyond it: there the kernel's f32
+    slab test may prune the accepting group.
+    """
+    PLAIN_CALLS["closest" if closest else "any"] += 1
+    _check_tables(dbvh, o.device)
+    dev = o.device
+    B = o.shape[0]
+    K = bf16_constants(dev)
+    bf = torch.bfloat16
+    nodes = dbvh.nodes16.detach().cpu().numpy().reshape(-1, NODE_F)
+    if dbvh.two_level:
+        inst_rows = dbvh.inst16.detach().cpu().numpy().reshape(-1, INST_F)
+        spaces = [(iid, int(np.rint(inst_rows[iid, 12])))
+                  for iid in range(dbvh.n_instances)]
+    else:
+        spaces = [(-1, 0)]
+    tables: dict[int, dict] = {}
+    lane = torch.remainder(torch.arange(B, device=dev), LEAF_W)
+    inf = torch.tensor(float("inf"), device=dev)
+
+    best_t = torch.full((B,), float("inf"), device=dev)   # smallest group best
+    second_t = best_t.clone()                              # second smallest
+    best_tn = torch.zeros((B,), device=dev)               # its group's box entry
+    best_out = torch.zeros((B,), dtype=torch.bool, device=dev)  # misses its leaf box
+    best_gk = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    best_i = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    cert = torch.zeros((B,), dtype=torch.bool, device=dev)
+    unc = torch.zeros_like(cert)
+    near = torch.zeros_like(cert)
+    budget = trace._pair_budget(dev)
+
+    for iid, root in spaces:
+        if root not in tables:
+            tables[root] = _space_table(dbvh, root, nodes)
+        tab = tables[root]
+        n_cand = tab["slot"].shape[0]
+        if n_cand == 0:
+            continue
+        if iid >= 0:
+            m = dbvh.inst16[iid * INST_F: iid * INST_F + 12]
+            wx, wy, wz = o[:, 0], o[:, 1], o[:, 2]
+            wdx, wdy, wdz = d[:, 0], d[:, 1], d[:, 2]
+            oo = (m[0] * wx + m[1] * wy + m[2] * wz + m[3],
+                  m[4] * wx + m[5] * wy + m[6] * wz + m[7],
+                  m[8] * wx + m[9] * wy + m[10] * wz + m[11])
+            dd = (m[0] * wdx + m[1] * wdy + m[2] * wdz,
+                  m[4] * wdx + m[5] * wdy + m[6] * wdz,
+                  m[8] * wdx + m[9] * wdy + m[10] * wdz)
+        else:
+            oo = (o[:, 0], o[:, 1], o[:, 2])
+            dd = (d[:, 0], d[:, 1], d[:, 2])
+        glo, nb = tab["glo"], tab["node_box"]
+        lo = [glo[None, :, a] for a in range(3)]
+        hi = [glo[None, :, 4 + a] for a in range(3)]
+        nlo = [nb[None, :, a] for a in range(3)]
+        nhi = [nb[None, :, 3 + a] for a in range(3)]
+        slot = tab["slot"]
+        rc = max(1, budget // n_cand)
+        for r0 in range(0, B, rc):
+            rs = slice(r0, min(B, r0 + rc))
+            R = rs.stop - rs.start
+            oc = [c[rs, None] for c in oo]
+            dc = [c[rs, None] for c in dd]
+            rd = [safe_rcp(c) for c in dc]
+            # f32 re-origin at the group box entry and the per-lane box gate
+            t0 = [(lo[a] - oc[a]) * rd[a] for a in range(3)]
+            t1 = [(hi[a] - oc[a]) * rd[a] for a in range(3)]
+            tn_g = torch.maximum(torch.maximum(
+                torch.minimum(t0[0], t1[0]), torch.minimum(t0[1], t1[1])),
+                torch.minimum(t0[2], t1[2]))
+            tn_g = torch.clamp(tn_g, min=0.0)                    # (R, G)
+            tf_g = torch.minimum(torch.minimum(
+                torch.maximum(t0[0], t1[0]), torch.maximum(t0[1], t1[1])),
+                torch.maximum(t0[2], t1[2]))
+            bm = ((tn_g <= tf_g) & (tf_g >= 0.0)).to(bf)[:, slot]  # (R, K)
+            # the leaf's own node box, as the traversal's slab test sees it
+            n0 = [(nlo[a] - oc[a]) * rd[a] for a in range(3)]
+            n1 = [(nhi[a] - oc[a]) * rd[a] for a in range(3)]
+            tn_n = torch.maximum(torch.maximum(
+                torch.minimum(n0[0], n1[0]), torch.minimum(n0[1], n1[1])),
+                torch.minimum(n0[2], n1[2]))
+            tf_n = torch.minimum(torch.minimum(
+                torch.maximum(n0[0], n1[0]), torch.maximum(n0[1], n1[1])),
+                torch.maximum(n0[2], n1[2]))
+            leaf_out = ~((tn_n <= tf_n) & (tf_n > 0.0))          # (R, G)
+            o3 = [(oc[a] + tn_g * dc[a] - lo[a]).to(bf)[:, slot] for a in range(3)]
+            d3 = [c.to(bf) for c in dc]
+            tn16 = tn_g.to(bf)[:, slot]
+            comps = tab["comps"][lane[rs]]                       # (R, 9, K)
+            tt, m, r_in, muv = _bf16_mt(o3, d3, comps.unbind(1), K)
+            m = m * bm
+            t_glob = tn16 + tt
+            one, zero = K["1"], K["0"]
+            tm = t_max[rs, None]
+            if closest:
+                m = m * torch.maximum(torch.minimum(t_glob * K["1e4"], one), zero)
+                pen = one + K["0.05"] * (one - r_in)
+                t_cand = (torch.maximum(t_glob, zero) * pen
+                          + (one - m) * K["1e30"])
+                tc = t_cand.float()
+                tc = torch.where(tc < 9e29, tc, inf)
+                # this space's winner: smallest t, then first group, then
+                # the largest key of that group (a later k, then band 1)
+                tmin = tc.min(dim=1).values
+                rank = torch.where(tc == tmin[:, None], tab["rank"][None, :],
+                                   torch.iinfo(torch.int64).max)
+                j = rank.argmin(dim=1)
+                take = tmin < best_t[rs]
+                best_tn[rs] = torch.where(
+                    take, tn_g.gather(1, slot[j][:, None])[:, 0], best_tn[rs])
+                best_out[rs] = torch.where(
+                    take, leaf_out.gather(1, slot[j][:, None])[:, 0], best_out[rs])
+                best_gk[rs] = torch.where(take, tab["key"][j].to(torch.int32),
+                                          best_gk[rs])
+                best_i[rs] = torch.where(take, torch.full_like(best_i[rs], iid),
+                                         best_i[rs])
+                # group bests: the two smallest over all groups seen so far
+                gbest = torch.full((R, tab["n_groups"]), float("inf"), device=dev)
+                gbest = gbest.scatter_reduce(1, slot[None, :].expand(R, -1), tc,
+                                             "amin")
+                two = torch.topk(torch.cat([gbest, best_t[rs, None],
+                                            second_t[rs, None]], 1),
+                                 2, dim=1, largest=False).values
+                best_t[rs] = two[:, 0]
+                second_t[rs] = two[:, 1]
+            else:
+                tmax16 = tm.to(bf)
+                mt = (torch.maximum(torch.minimum(t_glob * K["1e4"], one), zero)
+                      * torch.maximum(torch.minimum((tmax16 - t_glob) * K["1e4"],
+                                                    one), zero))
+                m_cert = torch.maximum(torch.minimum((muv - K["apron"]) * K["1e4"],
+                                                     one), zero)
+                acc = m * mt
+                cert[rs] |= ((m * m_cert * mt).float() > 0.5).any(dim=1)
+                unc[rs] |= (acc.float() > 0.5).any(dim=1)
+                late = torch.maximum(t_glob.float(), tn_g[:, slot])
+                near[rs] |= ((acc.float() > 0)
+                             & ((late >= tm * (1.0 - band))
+                                | leaf_out[:, slot])).any(dim=1)
+    if not closest:
+        return cert, unc, near
+    found = best_t < t_max
+    t = torch.where(found, best_t, t_max)
+    gk = torch.where(found, best_gk, -1)
+    inst = torch.where(found, best_i, -1)
+    near = found & (best_out | (torch.minimum(second_t, t_max)
+                                <= torch.maximum(best_t, best_tn) * (1.0 + band)))
+    return t, gk, inst, near
+
+
+def _check_rays(dbvh: DenseBVH, o, d, t_max):
+    trace._check_rays(dbvh, o, d, t_max)
+    _check_tables(dbvh, o.device)
+
+
+def _call_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool):
+    """Kernel B2 (CUDA) or its plain version (CPU). Closest: (t, gk, inst);
+    occlusion: (cert, unc)."""
+    _check_rays(dbvh, o, d, t_max)
+    if o.device.type == "cuda":
+        return _launch(dbvh, o, d, t_max, closest)
+    if o.device.type == "cpu":
+        return plain_traverse_bf16(dbvh, o, d, t_max, closest)[:-1]
+    raise ValueError(f"no traversal for device {o.device}")
+
+
+# ---------------------------------------------------------------------------
+# Winner decode
+# ---------------------------------------------------------------------------
+
+def _winner_slot(gk):
+    """(group, period c, lane slot of the winning triangle) of winner keys
+    in the order the kernel saw them (ray i swept as lane i mod 128)."""
+    gkc = gk.clamp(min=0).long()
+    band = gkc % 2
+    rest = gkc // 2
+    k = rest % 64
+    g8l = rest // 64
+    g = g8l // 8
+    c = torch.ones_like(g) << (g8l % 8)
+    shift = (band * c) // 2
+    lane = torch.arange(gk.shape[0], device=gk.device) % LEAF_W
+    slot = torch.remainder(lane - k - shift, LEAF_W)
+    return g, c, slot
+
+
+def _take(x, idx):
+    """``jnp.take(x, idx, mode="clip")``."""
+    return x[idx.clamp(0, x.shape[0] - 1)]
+
+
+def _decode_fast(dbvh: DenseBVH, tb, gk, inst) -> Hit:
+    """Winner prim only (one gather per ray from ``pids_c``) and the
+    kernel's bf16 t, u = v = 0: for callers that refine the hit themselves
+    (the integrator's refine_hit)."""
+    B = tb.shape[0]
+    g, c, slot = _winner_slot(gk)
+    if dbvh.pids_c is not None:
+        C = dbvh.pids_c.shape[0] // (dbvh.groups_bf.shape[0] // BF_ROWS)
+        prim_local = torch.round(_take(dbvh.pids_c, g * C + (slot & (c - 1))))
+    else:
+        gflat = dbvh.groups.reshape(-1)
+        prim_local = torch.round(_take(gflat, (g * GROUP_ROWS + 9) * LEAF_W + slot))
+    prim_local = prim_local.to(torch.int32)
+    found = (gk >= 0) & (prim_local >= 0)
+    inst0 = inst.clamp(min=0)
+    base = _take(dbvh.prim_base, inst0.long())
+    zero = torch.zeros((B,), dtype=torch.float32, device=tb.device)
+    return Hit(t=torch.where(found, tb, torch.full_like(tb, BVH_FAR)),
+               u=zero, v=zero.clone(),
+               prim=torch.where(found, prim_local + base, -1).to(torch.int32),
+               inst=torch.where(found, inst0, -1).to(torch.int32))
+
+
+def _decode_refine(dbvh: DenseBVH, o, d, t_max, tb, gk, inst) -> Hit:
+    """Exact f32 hit record of the winner (the reference's default window of
+    one triangle, REFINE_WIN = 1): its Möller-Trumbore with the f32 kernel's
+    predicate. An apron winner whose exact test misses by less than the
+    apron keeps the hit with clamped barycentrics; beyond it, it is a miss."""
+    B = o.shape[0]
+    g, _, slot = _winner_slot(gk)
+    gflat = dbvh.groups.reshape(-1)
+    row = lambda i: _take(gflat, (g * GROUP_ROWS + i) * LEAF_W + slot)
+    prims = torch.round(row(9)).to(torch.int32)
+    v0 = torch.stack([row(0), row(1), row(2)], dim=-1)
+    e1 = torch.stack([row(3), row(4), row(5)], dim=-1)
+    e2 = torch.stack([row(6), row(7), row(8)], dim=-1)
+    if dbvh.two_level:
+        a = _take(dbvh.inst16.reshape(-1, INST_F), inst.clamp(min=0).long())
+        A = a[:, 0:12].reshape(B, 3, 4)
+        oo = torch.einsum("bij,bj->bi", A[:, :, 0:3], o) + A[:, :, 3]
+        dd = torch.einsum("bij,bj->bi", A[:, :, 0:3], d)
+    else:
+        oo, dd = o, d
+    p = torch.linalg.cross(dd, e2, dim=-1)
+    det = torch.sum(e1 * p, dim=-1)
+    inv = 1.0 / torch.where(torch.abs(det) > 1e-9, det, torch.ones_like(det))
+    tv = oo - v0
+    u = torch.sum(tv * p, dim=-1) * inv
+    q = torch.linalg.cross(tv, e1, dim=-1)
+    v = torch.sum(dd * q, dim=-1) * inv
+    t = torch.sum(e2 * q, dim=-1) * inv
+    min_uv = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+    found = ((gk >= 0) & (torch.abs(det) > 1e-9) & (t > 0.0) & (t < t_max)
+             & (prims >= 0) & (min_uv > -APRON))
+    u = torch.clamp(u, 0.0, 1.0)
+    v = torch.minimum(torch.clamp(v, min=0.0), torch.clamp(1.0 - u, min=0.0))
+    inst0 = inst.clamp(min=0)
+    base = _take(dbvh.prim_base, inst0.long())
+    zero = torch.zeros_like(u)
+    return Hit(t=torch.where(found, t, torch.full_like(t, BVH_FAR)),
+               u=torch.where(found, u, zero), v=torch.where(found, v, zero),
+               prim=torch.where(found, prims + base, -1).to(torch.int32),
+               inst=torch.where(found, inst0, -1).to(torch.int32))
+
+
+def _decode(dbvh, tb, gk, inst, refine, o, d, t_max) -> Hit:
+    if refine == "fast":
+        return _decode_fast(dbvh, tb, gk, inst)
+    return _decode_refine(dbvh, o, d, t_max, tb, gk, inst)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _far(o):
+    return torch.full((o.shape[0],), BVH_FAR, dtype=o.dtype, device=o.device)
+
+
+def intersect_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
+                           refine="exact") -> Hit:
+    """Closest hit through the bf16 engine. refine="exact": the winner's
+    exact f32 record; refine="fast": prim only, t = the kernel's bf16 t,
+    u = v = 0 (the integrator refines the hit itself)."""
+    t_max = _far(o) if t_max is None else t_max
+    tb, gk, inst = _call_bf16(dbvh, o, d, t_max, closest=True)
+    return _decode(dbvh, tb, gk, inst, refine, o, d, t_max)
+
+
+def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted):
+    """Occluded = certain, or uncertain and not certain with an exact f32
+    occlusion (kernel B1) on those lanes alone (t_max masked to 0 elsewhere);
+    skipped when no lane needs it. ``presorted`` rays are traced in the
+    order given, so that lanes without a retest leave at the root together;
+    other rays are co-sorted first."""
+    need = unc & ~cert
+    if not bool(need.any()):
+        return cert
+    tm = torch.where(need, t_max, torch.zeros_like(t_max))
+    if presorted:
+        occ = trace.intersect_any_dense(dbvh, o, d, tm)
+    else:
+        occ = trace.sorted_any_dense(dbvh, o, d, tm)
+    return cert | (need & occ)
+
+
+def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
+    """Occlusion: kernel-certain (inside a triangle by more than the apron)
+    or an exact f32 verdict on the apron-uncertain lanes."""
+    cert, unc = _call_bf16(dbvh, o, d, t_max, closest=False)
+    return _resolve_uncertain(dbvh, o, d, t_max, cert, unc, presorted=False)
+
+
+def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
+                        refine="exact") -> Hit:
+    """Closest hit on octant+Morton-sorted rays, decoded in sorted order
+    (the winner key depends on the lane the kernel saw), scattered back."""
+    t_max = _far(o) if t_max is None else t_max
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+    tb, gk, inst = _call_bf16(dbvh, o_s, d_s, tm_s, closest=True)
+    hit = _decode(dbvh, tb, gk, inst, refine, o_s, d_s, tm_s)
+    return Hit(*(trace._unsort(perm, x) for x in hit))
+
+
+def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
+    """Occlusion on sorted rays; the uncertain lanes are resolved in sorted
+    order (no second sort), then the verdict is scattered back."""
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+    cert, unc = _call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
+    occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True)
+    return trace._unsort(perm, occ)

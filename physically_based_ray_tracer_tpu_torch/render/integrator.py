@@ -8,20 +8,26 @@ and its ``lax.cond`` gates are host checks (``alive.any()``): a bounce with
 no live lane is skipped, and a bounce where no live lane hit anything only
 settles the miss bookkeeping. Both change no result.
 
-Only the exact f32 traversal engine is ported (``traversal="pallas"``,
-``leaf_precision="f32"``, ``ops/trace.py``). Options the port does not
-carry raise ``NotImplementedError`` naming the option; see
-``check_supported``.
+Both engines of ``traversal="pallas"`` are ported, as the JAX package
+dispatches them: the bf16 engine (``leaf_precision="bf16"``, the
+``RenderConfig`` default; ``ops/trace_bf16.py``, kernel B2, with its
+uncertain occlusion lanes resolved by B1) and the exact f32 engine
+(``leaf_precision="f32"``; ``ops/trace.py``, kernel B1). As in the JAX
+package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups take the f32
+engine even when bf16 is asked for; the B1 and B2 launch counters show which
+one ran. Options the port does not carry raise ``NotImplementedError``
+naming the option; see ``check_supported``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from physically_based_ray_tracer_tpu_torch.bvh.dense import BF_ROWS
 from physically_based_ray_tracer_tpu_torch.config import (
     BVH_FAR, EPSILON, P_DIRECTIONAL, P_POINT, P_SPOT, RenderConfig, RenderMode)
 from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
-from physically_based_ray_tracer_tpu_torch.ops import trace
+from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
 from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
@@ -40,10 +46,10 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: only the exact dense-BVH engine "
             "(traversal='pallas') is ported")
-    if cfg.leaf_precision != "f32":
+    if cfg.leaf_precision not in ("bf16", "f32"):
         raise NotImplementedError(
-            f"leaf_precision={cfg.leaf_precision!r}: the bf16 engine is not "
-            "ported yet; pass leaf_precision='f32'")
+            f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
+            "and 'f32'")
     if cfg.rendering_mode != RenderMode.BRDF:
         raise NotImplementedError(
             f"rendering_mode={cfg.rendering_mode!r}: AOV modes are not ported")
@@ -65,16 +71,37 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
                                   "sampling is not ported")
 
 
-def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False) -> Hit:
-    if sort and cfg.sort_rays:
-        return trace.sorted_closest_dense(scene.dense, o, d, t_max)
-    return trace.intersect_closest_dense(scene.dense, o, d, t_max)
+def _use_bf16(cfg: RenderConfig, dense) -> bool:
+    """The bf16 engine runs when asked for, the table carries its bf16
+    leaves, and it has at most GLO_SMEM_LIMIT groups (the JAX package's
+    rule, kept for parity: larger tables take the f32 engine)."""
+    if cfg.leaf_precision != "bf16" or dense is None:
+        return False
+    if not trace_bf16.has_bf16_tables(dense):
+        return False
+    return dense.groups_bf.shape[0] // BF_ROWS <= trace_bf16.GLO_SMEM_LIMIT
+
+
+def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
+             refine="exact") -> Hit:
+    """refine="fast" (trace_paths): the bf16 engine decodes the prim only,
+    the integrator refines (t, u, v) itself."""
+    sort = sort and cfg.sort_rays
+    if _use_bf16(cfg, scene.dense):
+        fn = trace_bf16.sorted_closest_bf16 if sort \
+            else trace_bf16.intersect_closest_bf16
+        return fn(scene.dense, o, d, t_max, refine=refine)
+    fn = trace.sorted_closest_dense if sort else trace.intersect_closest_dense
+    return fn(scene.dense, o, d, t_max)
 
 
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
-    if sort and cfg.sort_rays:
-        return trace.sorted_any_dense(scene.dense, o, d, t_max)
-    return trace.intersect_any_dense(scene.dense, o, d, t_max)
+    sort = sort and cfg.sort_rays
+    if _use_bf16(cfg, scene.dense):
+        fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
+    else:
+        fn = trace.sorted_any_dense if sort else trace.intersect_any_dense
+    return fn(scene.dense, o, d, t_max)
 
 
 def _light_type_weights(lights):
@@ -248,7 +275,7 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
             continue           # bounce gate: nothing alive, carry unchanged
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
-        hit = _closest(scene, cfg, o, d, t_init, sort=True)
+        hit = _closest(scene, cfg, o, d, t_init, sort=True, refine="fast")
         prim = hit.prim.clamp(min=0).long()
         found0 = hit.prim >= 0
         if depth == 0:
@@ -260,8 +287,9 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
         attrs = gather_hit_attrs(scene, packs, prim)
         rt, ru, rv = refine_hit(o, d, attrs["v0"], attrs["e1"], attrs["e2"],
                                 mask=found0)
-        # the bf16-apron guard and simplex clamp of the JAX integrator; both
-        # are no-ops for the exact engine, kept for value parity
+        # bf16-apron guard: a winner more than the accept apron outside its
+        # triangle is a silhouette phantom, dropped; apron hits are clamped
+        # to the simplex. Both are no-ops for the exact f32 engine.
         inside = torch.minimum(torch.minimum(ru, rv), 1.0 - ru - rv) > -0.02
         found = found0 & inside
         ru = torch.clamp(ru, 0.0, 1.0)

@@ -66,11 +66,10 @@ def morton_pixel_order(width: int, height: int) -> np.ndarray:
 class Renderer:
     """Owns the film on ``device`` and renders frames of one scene.
 
-    Only the exact f32 traversal engine is ported, so callers pass
-    ``RenderConfig(..., leaf_precision="f32")``: the ``RenderConfig``
-    default (``"bf16"``) names the bf16 engine, which this package does not
-    have yet, and is refused here at construction (as is every other option
-    the port does not carry; see ``integrator.check_supported``).
+    Both traversal engines run: the ``RenderConfig`` default
+    (``leaf_precision="bf16"``) and the exact ``"f32"`` one. Options the port
+    does not carry are refused here at construction (see
+    ``integrator.check_supported``).
 
     ``key`` is the integer seed the JAX package would pass as
     ``jax.random.key(key)``; images are pixel-for-pixel comparable."""

@@ -204,12 +204,15 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
     ``arrays`` maps each SceneData field name to ``np.asarray`` of the JAX
     field, except ``dense`` and ``lights``, which map to dicts of their own
     fields (DenseBVH: nodes16, groups, inst16, prim_base, world_lo,
-    world_hi; LightSet: its twelve arrays). The legacy ``bvh`` field is not
-    read. Tests use this so that both packages trace identical tables."""
+    world_hi, and groups_bf, glo, pids_c where present; LightSet: its twelve
+    arrays). ``groups_bf`` keeps its bf16 bits (``DenseBVH.from_numpy``).
+    The legacy ``bvh`` field is not read. Tests use this so that both
+    packages trace identical tables."""
     d = arrays["dense"]
     dense = DenseBVH.from_numpy(d["nodes16"], d["groups"], d["inst16"],
                                 d["prim_base"], d["world_lo"], d["world_hi"],
-                                device=device)
+                                groups_bf=d.get("groups_bf"), glo=d.get("glo"),
+                                pids_c=d.get("pids_c"), device=device)
     lights = LightSet(**{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
                          for k, v in arrays["lights"].items()})
     rest = {k: v for k, v in arrays.items()

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Profile one bench frame of the PyTorch + CUDA port on the GPU.
+"""Profile one bench frame of the PyTorch + CUDA port on the GPU, per engine.
 
     python3 profile_torch_frame.py
 
-Renders the benchmark frame (bench scene, 4 bounces, AA, one shadow ray,
-f32 engine) once to warm up, then once under ``torch.profiler`` and prints:
-the frame's wall time, the summed device time of all kernels (and of the
-traversal kernel alone), the device-busy share of the wall time, the kernel
-launch count, and the top 40 operators by device time.
+Renders the benchmark frame (bench scene, 1280x720, 4 bounces, AA, one
+shadow ray) with the default bf16 engine and then with the exact f32 engine:
+for each, once to warm up, then once under ``torch.profiler``. Prints per
+engine the frame's wall time, the summed device time of all kernels and of
+the traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``),
+the device-busy share of the wall time and the kernel launch count, and the
+top 30 operators by device time.
 """
 
 from __future__ import annotations
@@ -18,28 +20,11 @@ import sys
 import time
 
 
-def main() -> int:
+def _profile(scene, cam, cfg, dev, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        print("profile_torch_frame: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    from physically_based_ray_tracer_tpu_torch import RenderConfig
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
-    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    dev = torch.device("cuda", 0)
-    scene, cam, _ = build_bench_scene(device=dev)
-    cfg = RenderConfig(width=1280, height=720, bounces=4,
-                       antialias=True, skybox=False, traversal="pallas",
-                       leaf_precision="f32", one_shadow_ray=True,
-                       chunk_pixels=65536)
     r = Renderer(scene, cam, cfg, device=dev)
     r.tick(0)
     torch.cuda.synchronize()
@@ -56,12 +41,36 @@ def main() -> int:
     if not kernels:
         kernels = [(k.name, k.duration) for e in evs for k in e.kernels]
     dev_ms = sum(t for _, t in kernels) / 1e3
-    trav_ms = sum(t for n, t in kernels if "traverse_kernel" in n) / 1e3
+    b2 = [t for n, t in kernels if "traverse_bf16_kernel" in n]
+    b1 = [t for n, t in kernels if "traverse_kernel" in n and "bf16" not in n]
     print(f"card: {card}")
-    print(f"frame 1280x720: wall {wall_ms:.2f} ms, device "
-          f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), traversal kernel "
-          f"{trav_ms:.2f} ms, device busy {100 * dev_ms / wall_ms:.1f}%")
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    print(f"frame 1280x720 {cfg.leaf_precision}: wall {wall_ms:.2f} ms, device "
+          f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), B2 {sum(b2) / 1e3:.2f} ms "
+          f"({len(b2)} launches), B1 {sum(b1) / 1e3:.2f} ms ({len(b1)} launches), "
+          f"device busy {100 * dev_ms / wall_ms:.1f}%")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_frame: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    scene, cam, _ = build_bench_scene(device=dev)
+    cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
+                       skybox=False, one_shadow_ray=True, chunk_pixels=65536)
+    for precision in ("bf16", "f32"):
+        _profile(scene, cam, cfg.replace(leaf_precision=precision), dev, card)
     return 0
 
 

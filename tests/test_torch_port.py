@@ -37,6 +37,7 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert "physically_based_ray_tracer_tpu_torch.ops.trace" in mods
+    assert "physically_based_ray_tracer_tpu_torch.ops.trace_bf16" in mods
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -72,7 +73,7 @@ def test_config_mirrors_jax():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(leaf_precision="bf16"), "leaf_precision"),
+    (dict(leaf_precision="fp16"), "leaf_precision"),
     (dict(traversal="wave"), "traversal"),
     (dict(traversal="pallas_rows"), "traversal"),
     (dict(rendering_mode=RenderMode.BASECOLOR), "rendering_mode"),
@@ -95,11 +96,12 @@ def test_unported_options_raise(kw, name):
 
 
 def test_default_config_and_sky_raise():
-    """RenderConfig's default engine (bf16) and a real sky image are refused."""
+    """RenderConfig's default engine (bf16) is taken; a real sky image is
+    refused."""
     jscene, jcam = instanced_scene()
     scene, cam = port_scene(jscene), port_camera(jcam)
-    with pytest.raises(NotImplementedError, match="leaf_precision"):
-        Renderer(scene, cam, RenderConfig(width=8, height=8))
+    r = Renderer(scene, cam, RenderConfig(width=8, height=8))
+    assert r.config.leaf_precision == "bf16"
     sky_scene = dataclasses.replace(scene, sky=torch.ones((4, 8, 3)))
     cfg = port_config(SLICE_CFG)
     with pytest.raises(NotImplementedError, match="skybox"):

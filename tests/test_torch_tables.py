@@ -2,6 +2,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -39,6 +40,11 @@ def _same_bytes(got, want, what):
 def _same_dense(t, j):
     for f in DENSE_FIELDS:
         _same_bytes(getattr(t, f), getattr(j, f), f)
+    # the bf16 engine's tables: groups_bf bit for bit (int16 views)
+    _same_bytes(t.groups_bf.view(torch.int16), np.asarray(j.groups_bf).view(np.int16),
+                "groups_bf")
+    _same_bytes(t.glo, j.glo, "glo")
+    _same_bytes(t.pids_c, j.pids_c, "pids_c")
 
 
 def _same_scene(t, j):
@@ -154,3 +160,29 @@ def test_instanced_auto_flatten_identical():
     _same_scene(t, j)
     assert (tmeta is None) == (jmeta.tlas_meta is None)
     assert tdepth == jdepth
+
+
+@pytest.mark.parametrize("leaf_target", [1, 2, 5, 16, 128])
+def test_bf16_packing_identical(leaf_target):
+    """_pack_groups_bf on the JAX package's own groups array, over leaf
+    periods c from 1 to 128 (1-2, 2-8, 2-16 and 128 in these builds): bf16 bits, group boxes and the compact prim-id
+    table equal the JAX package's; _group_period reads each group's c."""
+    tri = _tris()
+    j, _ = jdense.build_dense(tri, leaf_target=leaf_target)
+    groups = np.asarray(j.groups)
+    gbf, glo, pids_c = tdense._pack_groups_bf(groups)
+    jbf, jglo, jpids = jdense._pack_groups_bf(groups)
+    _same_bytes(gbf.view(torch.int16), np.asarray(jbf).view(np.int16), "groups_bf")
+    _same_bytes(glo, jglo, "glo")
+    _same_bytes(pids_c, jpids, "pids_c")
+    rows = groups.reshape(-1, tdense.GROUP_ROWS, tdense.LEAF_W)[:, 9, :]
+    periods = [tdense._group_period(r) for r in rows]
+    assert periods == [jdense._group_period(r) for r in rows]
+    assert set(periods) <= {1, 2, 4, 8, 16, 32, 64, 128}
+    # a port DenseBVH built from the JAX arrays keeps the bf16 bits as they are
+    t = tdense.DenseBVH.from_numpy(
+        *(np.asarray(getattr(j, f)) for f in DENSE_FIELDS),
+        groups_bf=np.asarray(j.groups_bf), glo=np.asarray(j.glo),
+        pids_c=np.asarray(j.pids_c))
+    assert t.groups_bf.dtype == torch.bfloat16
+    _same_dense(t, j)
