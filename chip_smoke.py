@@ -6,20 +6,24 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
-port's two traversal kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32
-engine) and ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
-``RenderConfig`` default), with one ``nvcc`` each, started together (into
-``build/torch_kernels/``), then:
+port's three traversal kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32
+engine), ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
+``RenderConfig`` default) and ``csrc/traverse_rows.cu`` (B3, the row-parallel
+exact engine, ``traversal="pallas_rows"``), with one ``nvcc`` each, started
+together (into ``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
-   the kernel build times;
-2. B1 vs its plain version: on the benchmark scene (two-level, as
-   flatten="auto" builds it, and flattened to one level) and three
-   131,072-ray sets (primary rays of an AA-doubled chunk of pixels drawn over
-   the whole frame, bounce-like rays from surface points, shadow rays with
-   finite tmax, ~20% of them 0): equal found masks, t within 1e-6 relative,
-   equal prim/instance except where the plain version sees a t-tie, equal
-   occlusion masks, no truncated ray;
+   the kernel build times and ptxas register / spill reports;
+2. B1 and B3 vs their plain version (one function, computed once per table
+   and set): on the benchmark scene (two-level, as flatten="auto" builds it,
+   and flattened to one level) and three 131,072-ray sets (primary rays of
+   an AA-doubled chunk of pixels drawn over the whole frame, bounce-like
+   rays from surface points, shadow rays with finite tmax, ~20% of them 0),
+   each kernel through the main path's sorted wrappers: equal found masks,
+   t within 1e-6 relative, equal prim/instance except where the plain
+   version sees a t-tie, equal occlusion masks, no truncated ray; and B3 vs
+   B1: t bit-equal wherever both found a hit, equal occlusion. Prints the
+   tie counts;
 3. B2 vs its plain version on the same tables and rays, both run on the
    main path's co-sorted rays (the sort wrappers' order, which sets the
    sweep lanes): equal found masks, winner keys, instances and decoded prims,
@@ -37,9 +41,20 @@ engine) and ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
    same prim on > 97% of rays that both hit on the primary rays, the ray
    class the contract was written for (on the bounce and shadow sets the
    JAX engine itself gives 1.5% and 0.4% found mismatch: printed, not gated);
-5. times: median of CUDA-event runs, 10 of each kernel and 3 of each plain
-   version, on the 131,072-ray sets (two-level table), and of B1 alone on the
-   one-level table;
+5. times: median of CUDA-event runs, 10 of each kernel (after a warm-up)
+   and 2 of each plain version, on the co-sorted 131,072-ray sets: B1 and B3 side by side on
+   both tables, B2 on the two-level one; plain versions on the two-level
+   table (B3's, the same function as B1's, on the two sets the kernels line
+   reports);
+5b. bound inputs: the counting instantiation of each kernel (a template
+   flag; the main path's instantiation is untouched) counts node steps,
+   triangle tests and leaf visits once per set; with each module's
+   operations per unit (UNIT_OPS) and the bytes each launch must move, they
+   give each kernel's bound (the larger of the operations over the card's
+   peaks, f32 at 67 TFLOP/s and bf16 at 133.8 TFLOP/s outside the tensor
+   cores, and bytes / 3.35 TB/s). B3's bound is the work of its function,
+   B1's count on the same rays; the work of its union walk is reported
+   beside it (``union_bound_ms``);
 6. the main path with the default configuration (bf16 engine): ``Renderer``
    on the benchmark frame (1280x720, 4 bounces, AA, NEE with one shadow ray):
    one warm-up and 3 timed ``tick``s with the counts set to 0 just before:
@@ -48,12 +63,17 @@ engine) and ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
    tick, B1 closest and any launched, plain versions never called; the bf16
    frame vs the f32 frame (their first ticks, same key) within the JAX
    package's contract (MSE < 2e-3, < 3% of pixels off by > 0.05);
-8. GPU vs CPU: a chunk of pixels drawn over the frame rendered on the GPU
+8. the main path with ``traversal="pallas_rows"``: one warm-up and one
+   timed tick, B3 closest and any launched, B1 and B2 never, plain versions
+   never called, no truncation, a finite image; its first tick vs the f32
+   engine's (same key): >= 99.9% of pixels allclose at rtol 2e-4, atol
+   2e-5 (only paths forked by a t-tie may differ);
+9. GPU vs CPU: a chunk of pixels drawn over the frame rendered on the GPU
    (kernels) and on the CPU (plain versions) with the same key, per engine:
    4096 pixels with the f32 engine (>= 99% of pixels allclose at rtol 2e-4,
    atol 2e-5) and 1536 with the bf16 engine (>= 98%; its plain version is
    ~2.5x slower on the CPU);
-9. prints the kernels' JSON line, the card line and, last,
+10. prints the kernels' JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -78,8 +98,24 @@ KERNELS = {
                      "physically_based_ray_tracer_tpu/ops/pallas_trace.py:102"),
     "traverse_bf16": (f"{PKG}/csrc/traverse_bf16.cu",
                       "physically_based_ray_tracer_tpu/ops/pallas_bf16.py:175"),
+    "traverse_rows": (f"{PKG}/csrc/traverse_rows.cu",
+                      "physically_based_ray_tracer_tpu/ops/pallas_rows.py:54"),
 }
 T_RTOL = 1e-6
+PLAIN_RUNS = 2          # timed runs of each plain version (each ~1-2 s)
+ROWS_FRAME_CLOSE = 0.999
+# the card's peaks for the bound, 700 W: f32 outside the tensor cores and
+# device memory (NVIDIA H100 SXM data sheet); bf16 outside the tensor cores
+# (NVIDIA H100 architecture whitepaper, SXM5; B2's per-lane arithmetic cannot
+# use the tensor cores' 989 TFLOP/s). Both run on the same FMA units, so a
+# kernel's operation time is the sum over types. The operations per unit of
+# counted work are each module's UNIT_OPS, next to the kernel's counting entry.
+PEAK_OPS = {"f32": 67e12, "bf16": 133.8e12}
+PEAK_BYTES = 3.35e12
+# bytes per ray each launch must move: o, d, tmax in; outputs by engine, mode
+RAY_IN_BYTES = 28
+OUT_BYTES = {("f32", "closest"): 20, ("f32", "any"): 1, ("rows", "closest"): 20,
+             ("rows", "any"): 1, ("bf16", "closest"): 12, ("bf16", "any"): 2}
 BF16_CHUNK = 1536
 F32_CHUNK = 4096
 
@@ -181,14 +217,20 @@ def _plain_hit(dbvh, o, d, tm):
     return found, hit.t, hit.prim, hit.inst, tie
 
 
-def _compare_f32(name, dbvh, o, d, tm, report):
-    """B1 (through the main path's sorted wrappers) vs its plain version."""
-    import torch
+def _plain_ref(dbvh, o, d, tm):
+    """B1's plain version (B3's too: the same function), once per table and
+    set: found, t, prim, inst, t-tie mask, occlusion."""
     from physically_based_ray_tracer_tpu_torch.ops import trace
-    hit = trace.sorted_closest_dense(dbvh, o, d, tm)
-    occ_k = trace.sorted_any_dense(dbvh, o, d, tm)
     found_p, t_p, prim_p, inst_p, tie = _plain_hit(dbvh, o, d, tm)
     occ_p = trace.plain_traverse(dbvh, o, d, tm, closest=False)
+    return found_p, t_p, prim_p, inst_p, tie, occ_p
+
+
+def _compare_exact(label, name, hit, occ_k, ref, report):
+    """An exact kernel's results (through the main path's sorted wrappers)
+    vs the plain version's."""
+    import torch
+    found_p, t_p, prim_p, inst_p, tie, occ_p = ref
     torch.cuda.synchronize()
     found_k = hit.prim >= 0
     both = found_k & found_p
@@ -202,13 +244,26 @@ def _compare_f32(name, dbvh, o, d, tm, report):
         prim_mismatch=int(((hit.prim != prim_p) & same).sum()),
         inst_mismatch=int(((hit.inst != inst_p) & same).sum()),
         occluded=int(occ_p.sum()), occ_mismatch=int((occ_k != occ_p).sum()))
-    print(f"  B1 {name}: {json.dumps(r)}", flush=True)
+    print(f"  {label} {name}: {json.dumps(r)}", flush=True)
     report.append(r)
-    _check(r["found_mismatch"] == 0, f"{name}: found masks differ")
-    _check(r["t_max_rel"] <= T_RTOL, f"{name}: t differs by {r['t_max_rel']}")
+    _check(r["found_mismatch"] == 0, f"{label} {name}: found masks differ")
+    _check(r["t_max_rel"] <= T_RTOL, f"{label} {name}: t differs by {r['t_max_rel']}")
     _check(r["prim_mismatch"] == 0 and r["inst_mismatch"] == 0,
-           f"{name}: prim/inst differ outside t-ties")
-    _check(r["occ_mismatch"] == 0, f"{name}: occlusion masks differ")
+           f"{label} {name}: prim/inst differ outside t-ties")
+    _check(r["occ_mismatch"] == 0, f"{label} {name}: occlusion masks differ")
+
+
+def _rows_vs_f32(name, h3, occ3, h1, occ1):
+    """B3 vs B1 on the same rays: t bit-equal where both found a hit, equal
+    occlusion (prims may differ on t-ties only: checked against the plain
+    version)."""
+    both = (h3.prim >= 0) & (h1.prim >= 0)
+    r = dict(t_not_bit_equal=int(((h3.t != h1.t) & both).sum()),
+             prim_differs_on_ties=int(((h3.prim != h1.prim) & both).sum()),
+             occ_mismatch=int((occ3 != occ1).sum()))
+    print(f"  B3 vs B1 {name}: {json.dumps(r)}", flush=True)
+    _check(r["t_not_bit_equal"] == 0, f"{name}: B3 t not bit-equal to B1's")
+    _check(r["occ_mismatch"] == 0, f"{name}: B3 occlusion differs from B1's")
 
 
 def _compare_bf16(name, dbvh, o, d, tm, report):
@@ -298,10 +353,12 @@ def _contract_bf16_vs_f32(name, dbvh, o, d, tm, report, closest_gate):
     _check(r["occ_mismatch"] < 0.005, f"{name}: bf16 vs f32 occlusion mismatch")
 
 
-def _time_ms(fn, runs=10):
-    """Median over ``runs`` of one call timed by CUDA events, after a warm-up."""
+def _time_ms(fn, runs=10, warmup=True):
+    """Median over ``runs`` of one call timed by CUDA events, after a warm-up
+    (plain versions compile nothing and need none)."""
     import torch
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
@@ -312,6 +369,21 @@ def _time_ms(fn, runs=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _bound(eng, mode, dbvh, n_rays, ops):
+    """(bound ms, "operations" or "bytes", bytes) of one launch of engine
+    ``eng``: the larger of the operations ``ops`` (by type) over PEAK_OPS and
+    the bytes it must move (each ray input read once, each output written
+    once, each table read once) over PEAK_BYTES."""
+    tables = ((dbvh.nodes16, dbvh.groups_bf, dbvh.glo, dbvh.inst16) if eng == "bf16"
+              else (dbvh.nodes16, dbvh.groups, dbvh.inst16))
+    nbytes = (n_rays * (RAY_IN_BYTES + OUT_BYTES[(eng, mode)])
+              + sum(t.numel() * t.element_size() for t in tables))
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            nbytes)
 
 
 def _frame(renderer, ticks, counters):
@@ -368,7 +440,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from physically_based_ray_tracer_tpu_torch import RenderConfig
-    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16
+    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16, trace_rows
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
     from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
 
@@ -378,6 +450,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = _smi()
     print(f"card: {card}", flush=True)
+    engines = (trace, trace_bf16, trace_rows)
 
     # 1. build
     with _Phase("build"):
@@ -387,6 +460,8 @@ def main() -> int:
             info = _build.BUILD_INFO[name]
             print(f"{name}: {info['seconds']:.2f} s ({info['path']})\n{info['log']}",
                   flush=True)
+        _check(_build.load("traverse_rows").pbrt_trace_rows_stack_cap()
+               == trace_rows.STACK_CAP, "B3's stack cap differs from trace_rows.STACK_CAP")
 
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
@@ -404,13 +479,25 @@ def main() -> int:
         sets = _ray_sets(scene2, cam, cfg, dev)
     tables = (("two-level", scene2), ("one-level", scene1))
 
-    # 2-4. kernels vs plain versions, bf16 vs f32
-    rep_f32, rep_bf16, rep_contract = [], [], []
-    with _Phase("B1 vs plain"):
+    # 2-4. kernels vs plain versions, B3 vs B1, bf16 vs f32
+    rep_f32, rep_rows, rep_bf16, rep_contract = [], [], [], []
+    with _Phase("B1 and B3 vs plain, B3 vs B1"):
         for tname, sc in tables:
             for sname, (o, d, tm) in sets.items():
-                _compare_f32(f"{tname}/{sname}", sc.dense, o, d, tm, rep_f32)
-        _check(trace.truncated_rays(dev) == 0, "B1 truncated rays")
+                name, dbvh = f"{tname}/{sname}", sc.dense
+                ref = _plain_ref(dbvh, o, d, tm)
+                h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+                occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
+                _compare_exact("B1", name, h1, occ1, ref, rep_f32)
+                h3 = trace_rows.sorted_rows_closest(dbvh, o, d, tm)
+                occ3 = trace_rows.sorted_rows_any(dbvh, o, d, tm)
+                _compare_exact("B3", name, h3, occ3, ref, rep_rows)
+                _rows_vs_f32(name, h3, occ3, h1, occ1)
+        trunc1, trunc3 = trace.truncated_rays(dev), trace_rows.truncated_rays(dev)
+        print(f"truncated rays: B1 {trunc1}, B3 {trunc3}; t-ties (plain version) "
+              f"{[r['ties'] for r in rep_rows]}", flush=True)
+        _check(trunc1 == 0, "B1 truncated rays")
+        _check(trunc3 == 0, f"{trunc3} rays hit B3's step bound or stack cap")
     with _Phase("B2 vs plain"):
         for tname, sc in tables:
             for sname, (o, d, tm) in sets.items():
@@ -424,8 +511,9 @@ def main() -> int:
                 _contract_bf16_vs_f32(f"{tname}/{sname}", sc.dense, o, d, tm,
                                       rep_contract, sname == "primary")
 
-    # 5. times at the main path's shapes, on co-sorted rays
-    times = {}
+    # 5. times at the main path's shapes, on co-sorted rays; 5b. bound inputs
+    times, work, bounds, union = {}, {}, {}, {}
+    report_sets = {"closest": "bounce", "any": "shadow"}   # the kernels line's
     with _Phase("times"):
         for sname, (o, d, tm) in sets.items():
             for tname, sc in tables:
@@ -434,26 +522,69 @@ def main() -> int:
                 for mode in ("closest", "any"):
                     closest = mode == "closest"
                     runs = [("f32", lambda: trace._traverse(dbvh, o_s, d_s, tm_s, closest),
-                             lambda: trace.plain_traverse(dbvh, o_s, d_s, tm_s, closest))]
+                             lambda: trace.plain_traverse(dbvh, o_s, d_s, tm_s, closest)),
+                            ("rows", lambda: trace_rows._traverse(dbvh, o_s, d_s, tm_s, closest),
+                             lambda: trace_rows.plain_traverse_rows(dbvh, o_s, d_s, tm_s,
+                                                                    closest))]
                     if tname == "two-level":
                         runs.append(("bf16",
                                      lambda: trace_bf16._call_bf16(dbvh, o_s, d_s, tm_s, closest),
                                      lambda: trace_bf16.plain_traverse_bf16(
                                          dbvh, o_s, d_s, tm_s, closest)))
+                    k_ms = {}
                     for eng, kfn, pfn in runs:
-                        k_ms = _time_ms(kfn)
+                        k_ms[eng] = _time_ms(kfn)
                         line = (f"time {eng:4s} {mode:7s} {sname:7s} {N_RAYS} rays, "
-                                f"{tname}: kernel {k_ms:.4f} ms")
-                        if tname == "two-level":
-                            p_ms = _time_ms(pfn, runs=3)
-                            times[(eng, sname, mode)] = (k_ms, p_ms)
+                                f"{tname}: kernel {k_ms[eng]:.4f} ms")
+                        # B3's plain version is B1's function: timed on the
+                        # kernels line's sets only
+                        if tname == "two-level" and (eng != "rows"
+                                                     or report_sets[mode] == sname):
+                            p_ms = _time_ms(pfn, runs=PLAIN_RUNS, warmup=False)
+                            times[(eng, sname, mode)] = (k_ms[eng], p_ms)
                             line += f", plain {p_ms:.2f} ms"
+                        elif tname == "two-level":
+                            times[(eng, sname, mode)] = (k_ms[eng], None)
                         print(f"{line} [{card}]", flush=True)
+                    print(f"B3/B1 {mode:7s} {sname:7s} {tname}: "
+                          f"{k_ms['rows'] / k_ms['f32']:.3f}", flush=True)
+    with _Phase("bound inputs (counting instantiations)"):
+        dbvh = scene2.dense
+        counters = {"f32": trace.count_work, "rows": trace_rows.count_work,
+                    "bf16": trace_bf16.count_work}
+        for sname, (o, d, tm) in sets.items():
+            _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+            for mode in ("closest", "any"):
+                for eng, count in counters.items():
+                    w = count(dbvh, o_s, d_s, tm_s, mode == "closest")
+                    work[(eng, sname, mode)] = w
+                    # B3 computes B1's function: its bound is the work B1
+                    # needs on these rays; its own union walk (every lane of
+                    # a warp counted) is printed and reported beside it
+                    need = work[("f32", sname, mode)] if eng == "rows" else w
+                    b_ms, b_by, nbytes = _bound(eng, mode, dbvh, N_RAYS, need["ops"])
+                    bounds[(eng, sname, mode)] = (b_ms, b_by)
+                    k_ms = times[(eng, sname, mode)][0]
+                    whose = "B1 " if eng == "rows" else ""
+                    line = (f"bound {eng:4s} {mode:7s} {sname:7s} two-level: "
+                            f"{whose}{json.dumps(need)}, {nbytes:.4g} bytes -> "
+                            f"{b_ms:.5f} ms ({b_by}); kernel {k_ms:.4f} ms, bound / kernel "
+                            f"{100 * b_ms / k_ms:.2f}%")
+                    if eng == "rows":
+                        u_ms = _bound(eng, mode, dbvh, N_RAYS, w["ops"])[0]
+                        union[(sname, mode)] = u_ms
+                        line += (f"; union walk {json.dumps(w)} -> {u_ms:.5f} ms, "
+                                 f"{w['ops']['f32'] / need['ops']['f32']:.2f}x B1's ops")
+                    print(f"{line} [{card}]", flush=True)
+        _check(all(trunc == 0 for trunc in (trace.truncated_rays(dev),
+                                             trace_rows.truncated_rays(dev),
+                                             trace_bf16.truncated_rays(dev))),
+               "rays truncated by a counting launch")
 
     # 6. the main path, default configuration (bf16 engine)
     with _Phase("main path, bf16 (default config)"):
         r16 = Renderer(scene2, cam, cfg, device=dev)
-        first16, img, warm, ms, counts = _frame(r16, 3, (trace, trace_bf16))
+        first16, img, warm, ms, counts = _frame(r16, 3, engines)
         launches16 = counts["trace_bf16"][0]
         plain16 = sum(sum(c[1].values()) for c in counts.values())
         print(f"frame 1280x720 4 bounces AA bf16: warm-up {warm:.2f} s, median "
@@ -464,6 +595,7 @@ def main() -> int:
         _check(launches16["closest"] > 0 and launches16["any"] > 0,
                "the bf16 main path did not launch both B2 modes")
         _check(plain16 == 0, "the bf16 main path called a plain version")
+        _check(sum(counts["trace_rows"][0].values()) == 0, "the bf16 path launched B3")
         _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
                "bf16 image not finite or of the wrong shape")
         print(f"image finite, mean {float(img.mean()):.6f}", flush=True)
@@ -474,7 +606,7 @@ def main() -> int:
     with _Phase("main path, f32"):
         cfg32 = cfg.replace(leaf_precision="f32")
         r32 = Renderer(scene2, cam, cfg32, device=dev)
-        first32, img, warm, ms, counts = _frame(r32, 1, (trace, trace_bf16))
+        first32, img, warm, ms, counts = _frame(r32, 1, engines)
         launches32 = counts["trace"][0]
         plain32 = sum(sum(c[1].values()) for c in counts.values())
         print(f"frame 1280x720 4 bounces AA f32: warm-up {warm:.2f} s, "
@@ -484,6 +616,7 @@ def main() -> int:
         _check(launches32["closest"] > 0 and launches32["any"] > 0,
                "the f32 main path did not launch both B1 modes")
         _check(sum(counts["trace_bf16"][0].values()) == 0, "the f32 path launched B2")
+        _check(sum(counts["trace_rows"][0].values()) == 0, "the f32 path launched B3")
         _check(plain32 == 0, "the f32 main path called a plain version")
         _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
                "f32 image not finite or of the wrong shape")
@@ -495,29 +628,64 @@ def main() -> int:
               f"{off * 100:.3f}% pixels off by > 0.05", flush=True)
         _check(mse < 2e-3 and off < 0.03, "bf16 frame vs f32 frame contract")
 
-    # 8. GPU vs CPU chunks
+    # 8. the main path with the row-parallel engine (B3), vs the f32 frame
+    with _Phase("main path, pallas_rows"):
+        cfg_rows = cfg.replace(traversal="pallas_rows")
+        r_rows = Renderer(scene2, cam, cfg_rows, device=dev)
+        first_rows, img, warm, ms, counts = _frame(r_rows, 1, engines)
+        launches_rows = counts["trace_rows"][0]
+        plain_rows = sum(sum(c[1].values()) for c in counts.values())
+        print(f"frame 1280x720 4 bounces AA pallas_rows: warm-up {warm:.2f} s, "
+              f"{ms[0]:.2f} ms [{card}]", flush=True)
+        print(f"main path (2 frames): B3 launches {launches_rows}, B1 launches "
+              f"{counts['trace'][0]}, B2 launches {counts['trace_bf16'][0]}, "
+              f"plain-version calls {plain_rows}", flush=True)
+        _check(launches_rows["closest"] > 0 and launches_rows["any"] > 0,
+               "the pallas_rows main path did not launch both B3 modes")
+        _check(sum(counts["trace"][0].values()) == 0
+               and sum(counts["trace_bf16"][0].values()) == 0,
+               "the pallas_rows main path launched B1 or B2")
+        _check(plain_rows == 0, "the pallas_rows main path called a plain version")
+        _check(trace_rows.truncated_rays(dev) == 0, "rays truncated on the rows main path")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               "pallas_rows image not finite or of the wrong shape")
+        close = np.isclose(first_rows, first32, rtol=2e-4, atol=2e-5).all(axis=-1)
+        print(f"pallas_rows vs f32 frame (first ticks, same key): {close.mean() * 100:.4f}% "
+              f"pixels allclose ({int((~close).sum())} differ), max abs diff "
+              f"{float(np.abs(first_rows - first32).max()):.3e}", flush=True)
+        _check(close.mean() >= ROWS_FRAME_CLOSE, "pallas_rows frame vs f32 frame")
+
+    # 9. GPU vs CPU chunks
     with _Phase("GPU vs CPU chunks"):
         _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
         _chunk_gpu_vs_cpu(r16, cfg, BF16_CHUNK, 0.98, "bf16 engine")
 
-    # 9. result lines
+    # 10. result lines
     def err(eng, mode):
-        if eng == "f32":
-            return (max(r["t_max_abs"] for r in rep_f32) if mode == "closest"
-                    else float(any(r["occ_mismatch"] for r in rep_f32)))
+        if eng == "bf16":
+            rep = rep_bf16
+        else:
+            rep = rep_f32 if eng == "f32" else rep_rows
         if mode == "closest":
-            return max(r["t_max_abs"] for r in rep_bf16)
-        return float(any(r["occ_mismatch"] for r in rep_bf16))
+            return max(r["t_max_abs"] for r in rep)
+        return float(any(r["occ_mismatch"] for r in rep))
 
     kernels = []
-    for eng, launches in (("f32", launches32), ("bf16", launches16)):
+    for eng, launches in (("f32", launches32), ("bf16", launches16),
+                          ("rows", launches_rows)):
         src, replaces = KERNELS[f"traverse_{eng}"]
-        for mode, sname in (("closest", "bounce"), ("any", "shadow")):
+        for mode, sname in report_sets.items():
             k_ms, p_ms = times[(eng, sname, mode)]
+            b_ms, b_by = bounds[(eng, sname, mode)]
+            # no single PyTorch call computes a BVH traversal
             kernels.append({"name": f"traverse_{eng}_{mode}", "route": "cuda",
                             "source": src, "replaces": replaces,
                             "launches": launches[mode], "max_abs_err": err(eng, mode),
-                            "ms": k_ms, "plain_ms": p_ms})
+                            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "library_ms": None})
+            if eng == "rows":
+                # diagnostic: the bound of the work B3's schedule does
+                kernels[-1]["union_bound_ms"] = union[(sname, mode)]
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)

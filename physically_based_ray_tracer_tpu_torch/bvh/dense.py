@@ -48,6 +48,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+
 BINS = 8
 LEAF_W = 128          # triangle slots per leaf group (the TPU lane count)
 GROUP_ROWS = 16       # rows per group in the flat groups array (10 used)
@@ -111,10 +113,12 @@ class DenseBVH:
     @staticmethod
     def from_numpy(nodes16, groups, inst16, prim_base, world_lo, world_hi,
                    groups_bf=None, glo=None, pids_c=None,
-                   device="cpu") -> "DenseBVH":
+                   device=DEFAULT_DEVICE) -> "DenseBVH":
         """Tables from numpy arrays. ``groups_bf`` is a torch bf16 tensor or
         any 2-byte numpy array of bf16 bits (e.g. the JAX package's
         ``ml_dtypes.bfloat16`` array): its bits are taken as they are."""
+        device = resolve(device)
+
         def t(x, dtype):
             return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
         if groups_bf is not None and not isinstance(groups_bf, torch.Tensor):
@@ -617,7 +621,7 @@ def build_dense(triangles: np.ndarray, leaf_target: int = 64,
     """Single-level build over one triangle soup (prim ids global).
 
     shape=True runs the cost-driven leaf merge/split post-pass. Returns
-    (DenseBVH, depth)."""
+    (DenseBVH on the CPU, depth)."""
     tri = np.asarray(triangles, np.float32)
     if tri.ndim == 2:
         tri = tri.reshape(-1, 3, 3)
@@ -627,7 +631,8 @@ def build_dense(triangles: np.ndarray, leaf_target: int = 64,
     gbf, glo, pids_c = _pack_groups_bf(groups)
     dbvh = DenseBVH.from_numpy(nodes.reshape(-1), groups, _NO_INST,
                                np.zeros((1,), np.int32), root_lo, root_hi,
-                               groups_bf=gbf, glo=glo, pids_c=pids_c)
+                               groups_bf=gbf, glo=glo, pids_c=pids_c,
+                               device="cpu")   # host tables; the scene moves them
     return dbvh, depth
 
 
@@ -785,6 +790,7 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
     dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups,
                                inst16.reshape(-1), prim_base,
                                lo.min(axis=0), hi.max(axis=0),
-                               groups_bf=gbf, glo=glo, pids_c=pids_c)
+                               groups_bf=gbf, glo=glo, pids_c=pids_c,
+                               device="cpu")   # host tables; the scene moves them
     depth = tlas_cap.bit_length() + depth_blas + 2
     return dbvh, meta, depth

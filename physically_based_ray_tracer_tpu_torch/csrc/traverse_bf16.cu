@@ -85,7 +85,9 @@ struct MT {
 };
 
 // 2-band bf16 Möller-Trumbore of one candidate (ops/pallas_bf16.py _bf16_mt):
-// local t, the u/v/det accept mask, the apron interiorness ramp, min barycentric
+// local t, the u/v/det accept mask, the apron interiorness ramp, min barycentric.
+// ops/trace_bf16.py UNIT_OPS counts this arithmetic and LeafBf16::visit's for
+// the bound: an edit here updates it there.
 __device__ __forceinline__ MT bf16_mt(float ox, float oy, float oz, float dx, float dy,
                                       float dz, const float* c, const Consts& K) {
   const float v0x = c[0], v0y = c[1], v0z = c[2];
@@ -115,7 +117,10 @@ __device__ __forceinline__ MT bf16_mt(float ox, float oy, float oz, float dx, fl
   return out;
 }
 
-template <bool CLOSEST>
+// COUNT: also counts node steps, band candidates and leaf visits (the
+// counting instantiation, run once per ray set for the bound; the main path
+// never).
+template <bool CLOSEST, bool COUNT>
 struct LeafBf16 {
   const uint16_t* __restrict__ groups_bf;
   const float* __restrict__ glo;
@@ -125,13 +130,19 @@ struct LeafBf16 {
   float t_best;       // closest: f32 value of the bf16 running best (starts at tmax)
   int best_gk, best_inst;
   float cert, unc;    // occlusion: maxima of the certain / uncertain accepts
+  int n_node, n_tri, n_leaf;
 
   __device__ float clip() const { return CLOSEST ? t_best : tmax; }
+
+  __device__ void on_node() {
+    if (COUNT) ++n_node;
+  }
 
   __device__ bool visit(int gv, int inst, const Ray& r) {
     const int g = gv >> 3;
     const int log2c = gv & 7;
     const int count2 = 1 << max(log2c - 1, 0);
+    if (COUNT) ++n_leaf;
     // f32 re-origin at the group box entry, and the lane's own box gate
     const float* b = glo + (size_t)g * 8;
     const float gx = __ldg(b), gy = __ldg(b + 1), gz = __ldg(b + 2);
@@ -160,6 +171,7 @@ struct LeafBf16 {
       const int col = (lane - k) & (LEAF_W - 1);
 #pragma unroll
       for (int band = 0; band < 2; ++band) {
+        if (COUNT) ++n_tri;
         float c[9];
 #pragma unroll
         for (int i = 0; i < 9; ++i) c[i] = load_bf(base + (2 * i + band) * LEAF_W + col);
@@ -199,7 +211,7 @@ struct LeafBf16 {
   }
 };
 
-template <bool CLOSEST>
+template <bool CLOSEST, bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
 traverse_bf16_kernel(const float* __restrict__ nodes, const uint16_t* __restrict__ groups_bf,
                      const float* __restrict__ glo, const float* __restrict__ inst16,
@@ -208,13 +220,14 @@ traverse_bf16_kernel(const float* __restrict__ nodes, const uint16_t* __restrict
                      int n_rays, int max_steps, float* __restrict__ t_out,
                      int* __restrict__ gk_out, int* __restrict__ inst_out,
                      uint8_t* __restrict__ cert_out, uint8_t* __restrict__ unc_out,
-                     int* __restrict__ truncated) {
+                     int* __restrict__ truncated,
+                     unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray world = make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
                              dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   const float tmax = tmax_in[i];
-  LeafBf16<CLOSEST> leaf;
+  LeafBf16<CLOSEST, COUNT> leaf;
   leaf.groups_bf = groups_bf;
   leaf.glo = glo;
   leaf.lane = i & (LEAF_W - 1);
@@ -225,6 +238,7 @@ traverse_bf16_kernel(const float* __restrict__ nodes, const uint16_t* __restrict
   leaf.best_inst = -1;
   leaf.cert = 0.0f;
   leaf.unc = 0.0f;
+  leaf.n_node = leaf.n_tri = leaf.n_leaf = 0;
   if (walk<CLOSEST>(nodes, inst16, two_level, world, tmax, max_steps, leaf))
     atomicAdd(truncated, 1);
   if (CLOSEST) {
@@ -234,6 +248,11 @@ traverse_bf16_kernel(const float* __restrict__ nodes, const uint16_t* __restrict
   } else {
     cert_out[i] = leaf.cert > 0.5f ? 1 : 0;
     unc_out[i] = leaf.unc > 0.5f ? 1 : 0;
+  }
+  if (COUNT) {
+    atomicAdd(counters, (unsigned long long)leaf.n_node);
+    atomicAdd(counters + 1, (unsigned long long)leaf.n_tri);
+    atomicAdd(counters + 2, (unsigned long long)leaf.n_leaf);
   }
 }
 
@@ -255,14 +274,14 @@ int pbrt_trace_closest_bf16(const void* nodes, const void* groups_bf, const void
                             void* t_out, void* gk_out, void* inst_out, void* truncated,
                             void* stream) {
   if (n_rays <= 0) return 0;
-  traverse_bf16_kernel<true>
+  traverse_bf16_kernel<true, false>
       <<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(nodes), static_cast<const uint16_t*>(groups_bf),
           static_cast<const float*>(glo), static_cast<const float*>(inst16), two_level,
           static_cast<const float*>(orig), static_cast<const float*>(dir),
           static_cast<const float*>(tmax), n_rays, max_steps, static_cast<float*>(t_out),
           static_cast<int*>(gk_out), static_cast<int*>(inst_out), nullptr, nullptr,
-          static_cast<int*>(truncated));
+          static_cast<int*>(truncated), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -272,14 +291,36 @@ int pbrt_trace_any_bf16(const void* nodes, const void* groups_bf, const void* gl
                         const void* dir, const void* tmax, int n_rays, int max_steps,
                         void* cert_out, void* unc_out, void* truncated, void* stream) {
   if (n_rays <= 0) return 0;
-  traverse_bf16_kernel<false>
+  traverse_bf16_kernel<false, false>
       <<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(nodes), static_cast<const uint16_t*>(groups_bf),
           static_cast<const float*>(glo), static_cast<const float*>(inst16), two_level,
           static_cast<const float*>(orig), static_cast<const float*>(dir),
           static_cast<const float*>(tmax), n_rays, max_steps, nullptr, nullptr, nullptr,
           static_cast<uint8_t*>(cert_out), static_cast<uint8_t*>(unc_out),
-          static_cast<int*>(truncated));
+          static_cast<int*>(truncated), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The counting instantiation of either mode (closest != 0: closest hit):
+// the same outputs, plus counters[0..2] += node steps, band candidates and
+// leaf visits of this launch (unsigned 64-bit, zeroed by the caller).
+int pbrt_trace_count_bf16(const void* nodes, const void* groups_bf, const void* glo,
+                          const void* inst16, int two_level, const void* orig,
+                          const void* dir, const void* tmax, int n_rays, int max_steps,
+                          int closest, void* t_out, void* gk_out, void* inst_out,
+                          void* cert_out, void* unc_out, void* truncated, void* counters,
+                          void* stream) {
+  if (n_rays <= 0) return 0;
+  auto kernel = closest ? traverse_bf16_kernel<true, true> : traverse_bf16_kernel<false, true>;
+  kernel<<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(nodes), static_cast<const uint16_t*>(groups_bf),
+      static_cast<const float*>(glo), static_cast<const float*>(inst16), two_level,
+      static_cast<const float*>(orig), static_cast<const float*>(dir),
+      static_cast<const float*>(tmax), n_rays, max_steps, static_cast<float*>(t_out),
+      static_cast<int*>(gk_out), static_cast<int*>(inst_out),
+      static_cast<uint8_t*>(cert_out), static_cast<uint8_t*>(unc_out),
+      static_cast<int*>(truncated), static_cast<unsigned long long*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,8 @@
-// The node and TLAS phase shared by the traversal kernels traverse_f32.cu (B1)
-// and traverse_bf16.cu (B2): one thread per ray, a DenseBVH walked with a
-// per-thread stack, leaves handed to a leaf visitor.
+// What the traversal kernels traverse_f32.cu (B1), traverse_bf16.cu (B2) and
+// traverse_rows.cu (B3) share: the ray, the slab test and the f32
+// Möller-Trumbore test, and, for B1 and B2, the node and TLAS phase (one
+// thread per ray, a DenseBVH walked with a per-thread stack, leaves handed to
+// a leaf visitor). B3 walks the same tables once per warp instead.
 //
 // Semantics copied exactly from the TPU kernels (ops/pallas_trace.py and
 // ops/pallas_bf16.py of the JAX package): the sign-preserving 1e-20
@@ -16,7 +18,10 @@
 //   float clip() const;                      the slab clip of the next node test
 //   bool visit(int gv, int inst, const Ray&); sweep triangle leaf gv = group*8 +
 //                                             log2(c) in the current ray space;
-//                                             true ends the walk (ray done).
+//                                             true ends the walk (ray done);
+//   void on_node();                           called once per node step (a
+//                                             no-op unless the visitor counts
+//                                             work for the bound).
 
 #pragma once
 
@@ -35,6 +40,9 @@ constexpr int ABSENT = -(1 << 30);
 constexpr int DONE = 0x7FFFFFFF;
 constexpr int STACK_CAP = 64;
 constexpr int BLOCK = 128;
+// work counters of the counting instantiations: node steps, triangle tests,
+// leaf visits (summed over rays; B3: over warps, times 32 lanes)
+constexpr int N_COUNTERS = 3;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, rdx, rdy, rdz;
@@ -50,6 +58,9 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx,
   return Ray{ox, oy, oz, dx, dy, dz, rcp_safe(dx), rcp_safe(dy), rcp_safe(dz)};
 }
 
+// slab() and mt_f32() are the arithmetic that ops/trace.py UNIT_OPS counts
+// for the kernels' bound (26 operations per slab test, 54 per triangle test
+// with the t-clip compare): an edit here updates it there.
 __device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
                                      float hx, float hy, float hz, float t_clip,
                                      float* tn_out) {
@@ -63,6 +74,43 @@ __device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
   const float tf = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   *tn_out = tn;
   return (tn <= tf) && (tf > 0.0f) && (tn < t_clip) && (t_clip > 0.0f);
+}
+
+// Möller-Trumbore of ray r against the triangle in slot s of a leaf group
+// (rows 0..8 of the group at stride LEAF_W: v0, e1, e2), in the reference's
+// operation order. Returns the accept: |det| > 1e-9, u, v >= 0, u + v <= 1,
+// t > 0. Every kernel that tests f32 triangles uses this one function, so
+// their t values are bit-equal for the same ray and triangle.
+__device__ __forceinline__ bool mt_f32(const Ray& r, const float* __restrict__ s,
+                                       float& tt, float& uu, float& vv) {
+  const float v0x = s[0 * LEAF_W], v0y = s[1 * LEAF_W], v0z = s[2 * LEAF_W];
+  const float e1x = s[3 * LEAF_W], e1y = s[4 * LEAF_W], e1z = s[5 * LEAF_W];
+  const float e2x = s[6 * LEAF_W], e2y = s[7 * LEAF_W], e2z = s[8 * LEAF_W];
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool det_ok = fabsf(det) > 1e-9f;
+  const float inv = 1.0f / (det_ok ? det : 1.0f);
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  uu = (tx * px + ty * py + tz * pz) * inv;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > 0.0f;
+}
+
+// the object-space ray of instance row m (object-from-world 3x4) for world
+// ray w, in the reference's operation order
+__device__ __forceinline__ Ray enter_instance(const float* __restrict__ m, const Ray& w) {
+  return make_ray(m[0] * w.ox + m[1] * w.oy + m[2] * w.oz + m[3],
+                  m[4] * w.ox + m[5] * w.oy + m[6] * w.oz + m[7],
+                  m[8] * w.ox + m[9] * w.oy + m[10] * w.oz + m[11],
+                  m[0] * w.dx + m[1] * w.dy + m[2] * w.dz,
+                  m[4] * w.dx + m[5] * w.dy + m[6] * w.dz,
+                  m[8] * w.dx + m[9] * w.dy + m[10] * w.dz);
 }
 
 // Walks the tables for one ray; returns true if the ray was truncated (step
@@ -82,6 +130,7 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
     ++steps;
     int nxt = DONE;
     if (cur >= 0) {
+      leaf.on_node();
       const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
       const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
       const float t_clip = leaf.clip();
@@ -110,14 +159,7 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
           if (sp >= STACK_CAP) return true;
           stack[sp++] = RESTORE_CODE;
           const float* m = inst16 + (size_t)iid * INST_F;
-          const float wx = world.ox, wy = world.oy, wz = world.oz;
-          const float wdx = world.dx, wdy = world.dy, wdz = world.dz;
-          r = make_ray(m[0] * wx + m[1] * wy + m[2] * wz + m[3],
-                       m[4] * wx + m[5] * wy + m[6] * wz + m[7],
-                       m[8] * wx + m[9] * wy + m[10] * wz + m[11],
-                       m[0] * wdx + m[1] * wdy + m[2] * wdz,
-                       m[4] * wdx + m[5] * wdy + m[6] * wdz,
-                       m[8] * wdx + m[9] * wdy + m[10] * wdz);
+          r = enter_instance(m, world);
           inst = iid;
           nxt = (int)m[12];
         }

@@ -21,9 +21,9 @@
 // TPU's 128-lane cyclic sweep. The callers co-sort rays by octant + Morton
 // code (ops/trace.py) so that neighbouring threads take similar paths. What
 // later PRs may do: an AoS leaf repack (one 48-byte record per triangle
-// instead of 10 rows 512 bytes apart), a warp-shared stack (the analogue of
-// the TPU's pallas_rows kernel), persistent threads that fetch new rays as
-// others finish.
+// instead of 10 rows 512 bytes apart), persistent threads that fetch new rays
+// as others finish. The warp-shared-stack schedule of the same function is
+// kernel B3 (traverse_rows.cu).
 //
 // Not carried over from the TPU kernel, because a GPU thread has no use for
 // them: the 1024-ray tile with one shared SMEM stack and tile-wide any/min
@@ -31,8 +31,8 @@
 // ping-pong, and the SMEM/VMEM placement limits.
 //
 // Semantics copied exactly from the TPU kernel: the node and TLAS phase of
-// traverse_common.cuh (shared with the bf16 kernel), and Möller-Trumbore with
-// |det| > 1e-9, u, v >= 0, u + v <= 1, t > 0, a strict t < t_best in closest
+// traverse_common.cuh (shared with the bf16 kernel), and Möller-Trumbore
+// (mt_f32, shared with B3) with |det| > 1e-9, u, v >= 0, u + v <= 1, t > 0, a strict t < t_best in closest
 // mode and t < tmax in occlusion mode. Built without fast math and with
 // --fmad=false so that it matches the plain PyTorch version (ops/trace.py) to
 // the last bit, except on exact t-ties. Both modes descend into the nearer
@@ -45,45 +45,37 @@ namespace {
 using namespace pbrt;
 
 // Tests the c distinct triangles (slots 0..c-1) of a leaf group in f32.
-template <bool CLOSEST>
+// COUNT: also counts node steps, triangle tests and leaf visits (the counting
+// instantiation, run once per ray set for the bound; the main path never).
+template <bool CLOSEST, bool COUNT>
 struct LeafF32 {
   const float* __restrict__ groups;
   float tmax;
   float t_best, best_u, best_v;
   int best_prim, best_inst;
   bool occluded;
+  int n_node, n_tri, n_leaf;
 
   // occlusion mode leaves the walk as soon as it is occluded, so its clip is
   // tmax on every step it takes
   __device__ float clip() const { return CLOSEST ? t_best : tmax; }
 
+  __device__ void on_node() {
+    if (COUNT) ++n_node;
+  }
+
   __device__ bool visit(int gv, int inst, const Ray& r) {
     const int count = 1 << (gv & 7);
     const float* g = groups + (size_t)(gv >> 3) * GROUP_ROWS * LEAF_W;
+    if (COUNT) ++n_leaf;
     for (int j = 0; j < count; ++j) {
-      const float* s = g + j;
-      const float v0x = s[0 * LEAF_W], v0y = s[1 * LEAF_W], v0z = s[2 * LEAF_W];
-      const float e1x = s[3 * LEAF_W], e1y = s[4 * LEAF_W], e1z = s[5 * LEAF_W];
-      const float e2x = s[6 * LEAF_W], e2y = s[7 * LEAF_W], e2z = s[8 * LEAF_W];
-      const float px = r.dy * e2z - r.dz * e2y;
-      const float py = r.dz * e2x - r.dx * e2z;
-      const float pz = r.dx * e2y - r.dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const bool det_ok = fabsf(det) > 1e-9f;
-      const float inv = 1.0f / (det_ok ? det : 1.0f);
-      const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-      const float uu = (tx * px + ty * py + tz * pz) * inv;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-      const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv;
-      const bool ok = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
-                      tt > 0.0f;
+      if (COUNT) ++n_tri;
+      float tt, uu, vv;
+      const bool ok = mt_f32(r, g + j, tt, uu, vv);
       if (CLOSEST) {
         if (ok && tt < t_best) {
           t_best = tt; best_u = uu; best_v = vv;
-          best_prim = (int)s[9 * LEAF_W];
+          best_prim = (int)g[j + 9 * LEAF_W];
           best_inst = inst;
         }
       } else if (ok && tt < tmax) {
@@ -95,7 +87,7 @@ struct LeafF32 {
   }
 };
 
-template <bool CLOSEST>
+template <bool CLOSEST, bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
 traverse_kernel(const float* __restrict__ nodes, const float* __restrict__ groups,
                 const float* __restrict__ inst16, int two_level,
@@ -104,13 +96,13 @@ traverse_kernel(const float* __restrict__ nodes, const float* __restrict__ group
                 float* __restrict__ t_out, float* __restrict__ u_out,
                 float* __restrict__ v_out, int* __restrict__ prim_out,
                 int* __restrict__ inst_out, uint8_t* __restrict__ occ_out,
-                int* __restrict__ truncated) {
+                int* __restrict__ truncated, unsigned long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray world = make_ray(orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
                              dir[3 * i], dir[3 * i + 1], dir[3 * i + 2]);
   const float tmax = tmax_in[i];
-  LeafF32<CLOSEST> leaf{groups, tmax, tmax, 0.0f, 0.0f, -1, -1, false};
+  LeafF32<CLOSEST, COUNT> leaf{groups, tmax, tmax, 0.0f, 0.0f, -1, -1, false, 0, 0, 0};
   if (walk<true>(nodes, inst16, two_level, world, tmax, max_steps, leaf))
     atomicAdd(truncated, 1);
   if (CLOSEST) {
@@ -121,6 +113,11 @@ traverse_kernel(const float* __restrict__ nodes, const float* __restrict__ group
     inst_out[i] = leaf.best_inst;
   } else {
     occ_out[i] = leaf.occluded ? 1 : 0;
+  }
+  if (COUNT) {
+    atomicAdd(counters, (unsigned long long)leaf.n_node);
+    atomicAdd(counters + 1, (unsigned long long)leaf.n_tri);
+    atomicAdd(counters + 2, (unsigned long long)leaf.n_leaf);
   }
 }
 
@@ -142,13 +139,13 @@ int pbrt_trace_closest_f32(const void* nodes, const void* groups, const void* in
                            void* u_out, void* v_out, void* prim_out, void* inst_out,
                            void* truncated, void* stream) {
   if (n_rays <= 0) return 0;
-  traverse_kernel<true><<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  traverse_kernel<true, false><<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(nodes), static_cast<const float*>(groups),
       static_cast<const float*>(inst16), two_level, static_cast<const float*>(orig),
       static_cast<const float*>(dir), static_cast<const float*>(tmax), n_rays, max_steps,
       static_cast<float*>(t_out), static_cast<float*>(u_out), static_cast<float*>(v_out),
       static_cast<int*>(prim_out), static_cast<int*>(inst_out), nullptr,
-      static_cast<int*>(truncated));
+      static_cast<int*>(truncated), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -158,12 +155,34 @@ int pbrt_trace_any_f32(const void* nodes, const void* groups, const void* inst16
                        const void* tmax, int n_rays, int max_steps, void* occ_out,
                        void* truncated, void* stream) {
   if (n_rays <= 0) return 0;
-  traverse_kernel<false><<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  traverse_kernel<false, false><<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(nodes), static_cast<const float*>(groups),
       static_cast<const float*>(inst16), two_level, static_cast<const float*>(orig),
       static_cast<const float*>(dir), static_cast<const float*>(tmax), n_rays, max_steps,
       nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<uint8_t*>(occ_out),
-      static_cast<int*>(truncated));
+      static_cast<int*>(truncated), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The counting instantiation of either mode (closest != 0: closest hit):
+// the same outputs, plus counters[0..2] += node steps, triangle tests and
+// leaf visits of this launch (unsigned 64-bit, zeroed by the caller).
+int pbrt_trace_count_f32(const void* nodes, const void* groups, const void* inst16,
+                         int two_level, const void* orig, const void* dir,
+                         const void* tmax, int n_rays, int max_steps, int closest,
+                         void* t_out, void* u_out, void* v_out, void* prim_out,
+                         void* inst_out, void* occ_out, void* truncated, void* counters,
+                         void* stream) {
+  if (n_rays <= 0) return 0;
+  auto kernel = closest ? traverse_kernel<true, true> : traverse_kernel<false, true>;
+  kernel<<<grid_for(n_rays), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(nodes), static_cast<const float*>(groups),
+      static_cast<const float*>(inst16), two_level, static_cast<const float*>(orig),
+      static_cast<const float*>(dir), static_cast<const float*>(tmax), n_rays, max_steps,
+      static_cast<float*>(t_out), static_cast<float*>(u_out), static_cast<float*>(v_out),
+      static_cast<int*>(prim_out), static_cast<int*>(inst_out),
+      static_cast<uint8_t*>(occ_out), static_cast<int*>(truncated),
+      static_cast<unsigned long long*>(counters));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,6 +31,14 @@ LAUNCHES = {"closest": 0, "any": 0}
 PLAIN_CALLS = {"closest": 0, "any": 0}
 # per-device int32 count of rays that hit the step bound or the stack cap
 _TRUNCATED: dict[torch.device, torch.Tensor] = {}
+# what the kernels' counting instantiations count, in counter order
+WORK_KEYS = ("node_steps", "tri_tests", "leaf_visits")
+# operations per counted unit, by type, from the arithmetic of
+# csrc/traverse_common.cuh (B1 and B3): a node step is two slab tests of 26
+# (6 sub, 6 mul, 5 min/max for the entry, 5 for the exit, 4 compares); a
+# triangle test is mt_f32 (48 arithmetic, 5 accept compares) and the t-clip
+# compare; a leaf visit only loads
+UNIT_OPS = {"node_steps": {"f32": 52}, "tri_tests": {"f32": 54}}
 
 
 def reset_counts() -> None:
@@ -91,18 +99,64 @@ def launch_args(dbvh: DenseBVH, o, d, t_max, stack_cap: int, counts: dict):
     return o.contiguous(), d.contiguous(), t_max.contiguous(), trunc, stream
 
 
+def run_counting(fn, error_string, lead: tuple, outs: tuple, trunc, stream,
+                 unit_ops: dict) -> dict:
+    """Launch a kernel's counting instantiation ``fn(*lead, *outs, trunc,
+    counters, stream)`` and return its work counts (``WORK_KEYS``) and, under
+    ``"ops"``, the operations by type that ``unit_ops`` gives them. These
+    launches serve the bound in ``chip_smoke.py``; they are not main-path
+    launches and no ``LAUNCHES`` count includes them."""
+    counters = torch.zeros((len(WORK_KEYS),), dtype=torch.int64, device=trunc.device)
+    err = fn(*lead, *(x.data_ptr() for x in outs), trunc.data_ptr(),
+             counters.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("counting launch failed: " + error_string(err).decode())
+    work = dict(zip(WORK_KEYS, counters.tolist()))
+    ops: dict[str, int] = {}
+    for key, per_unit in unit_ops.items():
+        for kind, n in per_unit.items():
+            ops[kind] = ops.get(kind, 0) + work[key] * n
+    return {**work, "ops": ops}
+
+
+def _lead(dbvh: DenseBVH, lib, o, d, t_max):
+    """Checked launch arguments of B1: (table and ray pointers, B, max
+    steps), the truncation counter and the stream."""
+    o, d, t_max, trunc, stream = launch_args(dbvh, o, d, t_max,
+                                             lib.pbrt_trace_stack_cap(), _TRUNCATED)
+    lead = (dbvh.nodes16.data_ptr(), dbvh.groups.data_ptr(), dbvh.inst16.data_ptr(),
+            int(dbvh.two_level), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            o.shape[0], max_steps(dbvh))
+    return lead, trunc, stream
+
+
+def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:
+    """Node steps, triangle tests and leaf visits of one B1 launch on these
+    CUDA rays, and their operations (see ``run_counting``)."""
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    _check_rays(dbvh, o, d, t_max)
+    lib = _build.load("traverse_f32")
+    lead, trunc, stream = _lead(dbvh, lib, o, d, t_max)
+    return run_counting(lib.pbrt_trace_count_f32, lib.pbrt_trace_error_string,
+                        (*lead, int(closest)), raw_outputs(o.shape[0], o.device),
+                        trunc, stream, UNIT_OPS)
+
+
+def raw_outputs(B: int, dev) -> tuple:
+    """Empty (t, u, v, prim, inst, occ) of a counting launch of either mode."""
+    f = lambda: torch.empty((B,), dtype=torch.float32, device=dev)
+    i = lambda: torch.empty((B,), dtype=torch.int32, device=dev)
+    return f(), f(), f(), i(), i(), torch.empty((B,), dtype=torch.bool, device=dev)
+
+
 def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
     """Launch the CUDA kernel on the current stream; returns raw outputs."""
     from physically_based_ray_tracer_tpu_torch.ops import _build
 
     lib = _build.load("traverse_f32")
-    o, d, t_max, trunc, stream = launch_args(dbvh, o, d, t_max,
-                                             lib.pbrt_trace_stack_cap(), _TRUNCATED)
-    dev = o.device
-    B = o.shape[0]
-    common = (dbvh.nodes16.data_ptr(), dbvh.groups.data_ptr(),
-              dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(),
-              d.data_ptr(), t_max.data_ptr(), B, max_steps(dbvh))
+    lead, trunc, stream = _lead(dbvh, lib, o, d, t_max)
+    B, dev = o.shape[0], o.device
     if closest:
         t = torch.empty((B,), dtype=torch.float32, device=dev)
         u = torch.empty_like(t)
@@ -110,12 +164,12 @@ def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
         prim = torch.empty((B,), dtype=torch.int32, device=dev)
         inst = torch.empty_like(prim)
         err = lib.pbrt_trace_closest_f32(
-            *common, t.data_ptr(), u.data_ptr(), v.data_ptr(),
+            *lead, t.data_ptr(), u.data_ptr(), v.data_ptr(),
             prim.data_ptr(), inst.data_ptr(), trunc.data_ptr(), stream)
         out = (t, u, v, prim, inst)
     else:
         occ = torch.empty((B,), dtype=torch.bool, device=dev)
-        err = lib.pbrt_trace_any_f32(*common, occ.data_ptr(), trunc.data_ptr(),
+        err = lib.pbrt_trace_any_f32(*lead, occ.data_ptr(), trunc.data_ptr(),
                                      stream)
         out = occ
     if err != 0:
@@ -207,6 +261,13 @@ def plain_traverse(dbvh: DenseBVH, o, d, t_max, closest: bool):
     differ from the kernel's. Among equal t it keeps the first candidate in
     leaf order. Occlusion mode returns the occluded mask."""
     PLAIN_CALLS["closest" if closest else "any"] += 1
+    return brute_force_tables(dbvh, o, d, t_max, closest)
+
+
+def brute_force_tables(dbvh: DenseBVH, o, d, t_max, closest: bool):
+    """``plain_traverse``'s computation, uncounted: every triangle of every
+    object space against every ray. Kernels B1 and B3 compute this one
+    function, so it is the plain version of both (each counts its own calls)."""
     dev = o.device
     B = o.shape[0]
     nodes = dbvh.nodes16.detach().cpu().numpy().reshape(-1, NODE_F)

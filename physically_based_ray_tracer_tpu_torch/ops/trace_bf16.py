@@ -54,6 +54,22 @@ REFINE_WIN = 1          # the reference's default refine window (winner only)
 # GPU thread, plain brute force) may pick another winner or verdict
 NEAR_BAND = 2.0 ** -6
 
+# operations per counted unit, by type, from kernel B2's arithmetic
+# (csrc/traverse_bf16.cu), at the function's native bf16 count (the kernel's
+# f32 emulation of each bf16 rounding is not work the function needs), by
+# mode (closest: True): a node step is B1's (``trace.UNIT_OPS``); a band
+# candidate is the bf16 Möller-Trumbore (66: cross products 18, det 5, |det|
+# and reciprocal 3, inv 2, re-based origin 3, u/v/t 18, min_uv 4, the u/v,
+# det and interiorness ramps 12, their product 1), the masked global t 2,
+# then the closest accept 15 or the any accept 18; a leaf visit is the f32
+# group box gate (26), the re-origin (9), the casts of ray and entry to bf16
+# (7) and, in closest mode, the band merge (5)
+UNIT_OPS = {
+    closest: {"node_steps": trace.UNIT_OPS["node_steps"],
+              "tri_tests": {"bf16": 83 if closest else 86},
+              "leaf_visits": {"f32": 47 if closest else 42}}
+    for closest in (True, False)}
+
 LAUNCHES = {"closest": 0, "any": 0}
 PLAIN_CALLS = {"closest": 0, "any": 0}
 # per-device int32 count of rays that hit the step bound or the stack cap
@@ -84,31 +100,36 @@ def _check_tables(dbvh: DenseBVH, dev) -> None:
             raise ValueError(f"dbvh.{name} must be contiguous {dtype} on {dev}")
 
 
+def _lead(dbvh: DenseBVH, lib, o, d, t_max):
+    """Checked launch arguments of B2: (table and ray pointers, B, max
+    steps), the truncation counter and the stream."""
+    o, d, t_max, trunc, stream = trace.launch_args(
+        dbvh, o, d, t_max, lib.pbrt_trace_bf16_stack_cap(), _TRUNCATED)
+    lead = (dbvh.nodes16.data_ptr(), dbvh.groups_bf.data_ptr(), dbvh.glo.data_ptr(),
+            dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), o.shape[0], trace.max_steps(dbvh))
+    return lead, trunc, stream
+
+
 def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
     """Launch kernel B2 on the current stream; returns raw outputs."""
     from physically_based_ray_tracer_tpu_torch.ops import _build
 
     lib = _build.load("traverse_bf16")
-    o, d, t_max, trunc, stream = trace.launch_args(
-        dbvh, o, d, t_max, lib.pbrt_trace_bf16_stack_cap(), _TRUNCATED)
-    dev = o.device
-    B = o.shape[0]
-    common = (dbvh.nodes16.data_ptr(), dbvh.groups_bf.data_ptr(),
-              dbvh.glo.data_ptr(), dbvh.inst16.data_ptr(), int(dbvh.two_level),
-              o.data_ptr(), d.data_ptr(), t_max.data_ptr(), B,
-              trace.max_steps(dbvh))
+    lead, trunc, stream = _lead(dbvh, lib, o, d, t_max)
+    B, dev = o.shape[0], o.device
     if closest:
         t = torch.empty((B,), dtype=torch.float32, device=dev)
         gk = torch.empty((B,), dtype=torch.int32, device=dev)
         inst = torch.empty_like(gk)
-        err = lib.pbrt_trace_closest_bf16(*common, t.data_ptr(), gk.data_ptr(),
+        err = lib.pbrt_trace_closest_bf16(*lead, t.data_ptr(), gk.data_ptr(),
                                           inst.data_ptr(), trunc.data_ptr(),
                                           stream)
         out = (t, gk, inst)
     else:
         cert = torch.empty((B,), dtype=torch.bool, device=dev)
         unc = torch.empty_like(cert)
-        err = lib.pbrt_trace_any_bf16(*common, cert.data_ptr(), unc.data_ptr(),
+        err = lib.pbrt_trace_any_bf16(*lead, cert.data_ptr(), unc.data_ptr(),
                                       trunc.data_ptr(), stream)
         out = (cert, unc)
     if err != 0:
@@ -116,6 +137,22 @@ def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
                            + lib.pbrt_trace_bf16_error_string(err).decode())
     LAUNCHES["closest" if closest else "any"] += 1
     return out
+
+
+def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:
+    """Node steps, band candidates (``tri_tests``) and leaf visits of one B2
+    launch on these CUDA rays, and their operations (see
+    ``trace.run_counting``)."""
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    _check_rays(dbvh, o, d, t_max)
+    lib = _build.load("traverse_bf16")
+    lead, trunc, stream = _lead(dbvh, lib, o, d, t_max)
+    t, _, _, gk, inst, cert = trace.raw_outputs(o.shape[0], o.device)
+    return trace.run_counting(lib.pbrt_trace_count_bf16,
+                              lib.pbrt_trace_bf16_error_string, (*lead, int(closest)),
+                              (t, gk, inst, cert, torch.empty_like(cert)), trunc,
+                              stream, UNIT_OPS[closest])
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import EPSILON, RenderConfig
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
 
 class FilmState(NamedTuple):
@@ -21,7 +22,8 @@ class FilmState(NamedTuple):
     dist: torch.Tensor     # (Npix,) last primary-hit distance
 
     @staticmethod
-    def zeros(n_pixels: int, device="cpu") -> "FilmState":
+    def zeros(n_pixels: int, device=DEFAULT_DEVICE) -> "FilmState":
+        device = resolve(device)
         return FilmState(
             accum=torch.zeros((n_pixels, 3), dtype=torch.float32, device=device),
             spp=torch.zeros((n_pixels,), dtype=torch.float32, device=device),

@@ -8,15 +8,18 @@ and its ``lax.cond`` gates are host checks (``alive.any()``): a bounce with
 no live lane is skipped, and a bounce where no live lane hit anything only
 settles the miss bookkeeping. Both change no result.
 
-Both engines of ``traversal="pallas"`` are ported, as the JAX package
-dispatches them: the bf16 engine (``leaf_precision="bf16"``, the
+Three engines are ported, dispatched as the JAX package dispatches them:
+``traversal="pallas"`` with the bf16 engine (``leaf_precision="bf16"``, the
 ``RenderConfig`` default; ``ops/trace_bf16.py``, kernel B2, with its
-uncertain occlusion lanes resolved by B1) and the exact f32 engine
-(``leaf_precision="f32"``; ``ops/trace.py``, kernel B1). As in the JAX
+uncertain occlusion lanes resolved by B1) or the exact f32 engine
+(``leaf_precision="f32"``; ``ops/trace.py``, kernel B1), and
+``traversal="pallas_rows"``, the row-parallel exact engine
+(``ops/trace_rows.py``, kernel B3: B1's function, one traversal per warp),
+for which ``leaf_precision`` and ``refine`` do not apply. As in the JAX
 package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups take the f32
-engine even when bf16 is asked for; the B1 and B2 launch counters show which
-one ran. Options the port does not carry raise ``NotImplementedError``
-naming the option; see ``check_supported``.
+engine even when bf16 is asked for; the launch counters show which engine
+ran. Options the port does not carry raise ``NotImplementedError`` naming
+the option; see ``check_supported``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import BF_ROWS
 from physically_based_ray_tracer_tpu_torch.config import (
     BVH_FAR, EPSILON, P_DIRECTIONAL, P_POINT, P_SPOT, RenderConfig, RenderMode)
 from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
-from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16
+from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16, trace_rows
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
 from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
@@ -42,10 +45,10 @@ from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
 
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for every option this port does not carry."""
-    if cfg.traversal != "pallas":
+    if cfg.traversal not in ("pallas", "pallas_rows"):
         raise NotImplementedError(
-            f"traversal={cfg.traversal!r}: only the exact dense-BVH engine "
-            "(traversal='pallas') is ported")
+            f"traversal={cfg.traversal!r}: the port carries the dense-BVH "
+            "engines (traversal='pallas' and 'pallas_rows')")
     if cfg.leaf_precision not in ("bf16", "f32"):
         raise NotImplementedError(
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
@@ -85,8 +88,11 @@ def _use_bf16(cfg: RenderConfig, dense) -> bool:
 def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
              refine="exact") -> Hit:
     """refine="fast" (trace_paths): the bf16 engine decodes the prim only,
-    the integrator refines (t, u, v) itself."""
+    the integrator refines (t, u, v) itself. The exact engines ignore it."""
     sort = sort and cfg.sort_rays
+    if cfg.traversal == "pallas_rows":
+        fn = trace_rows.sorted_rows_closest if sort else trace_rows.rows_closest_dense
+        return fn(scene.dense, o, d, t_max)
     if _use_bf16(cfg, scene.dense):
         fn = trace_bf16.sorted_closest_bf16 if sort \
             else trace_bf16.intersect_closest_bf16
@@ -97,7 +103,9 @@ def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
 
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
     sort = sort and cfg.sort_rays
-    if _use_bf16(cfg, scene.dense):
+    if cfg.traversal == "pallas_rows":
+        fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
+    elif _use_bf16(cfg, scene.dense):
         fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
     else:
         fn = trace.sorted_any_dense if sort else trace.intersect_any_dense

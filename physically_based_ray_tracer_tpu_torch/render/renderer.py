@@ -15,6 +15,7 @@ from physically_based_ray_tracer_tpu_torch.config import RenderConfig
 from physically_based_ray_tracer_tpu_torch.render import film as film_mod
 from physically_based_ray_tracer_tpu_torch.render.integrator import (
     check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
 
 def render_chunked(scene, cam, cfg: RenderConfig, key: int, sample: int,
@@ -64,19 +65,23 @@ def morton_pixel_order(width: int, height: int) -> np.ndarray:
 
 
 class Renderer:
-    """Owns the film on ``device`` and renders frames of one scene.
+    """Owns the film on ``device`` (the CUDA card unless the caller passes
+    ``device="cpu"``) and renders frames of one scene.
 
-    Both traversal engines run: the ``RenderConfig`` default
-    (``leaf_precision="bf16"``) and the exact ``"f32"`` one. Options the port
-    does not carry are refused here at construction (see
+    Three traversal engines run: ``traversal="pallas"`` with the
+    ``RenderConfig`` default ``leaf_precision="bf16"`` (kernel B2) or the
+    exact ``"f32"`` one (kernel B1), and the row-parallel exact engine
+    ``traversal="pallas_rows"`` (kernel B3). Options the port does not carry
+    are refused here at construction, before any device work (see
     ``integrator.check_supported``).
 
     ``key`` is the integer seed the JAX package would pass as
     ``jax.random.key(key)``; images are pixel-for-pixel comparable."""
 
-    def __init__(self, scene, camera, config: RenderConfig, device="cpu"):
+    def __init__(self, scene, camera, config: RenderConfig,
+                 device=DEFAULT_DEVICE):
         check_supported(config, scene)
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.config = config

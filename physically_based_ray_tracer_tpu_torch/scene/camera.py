@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.math import cross, normalize
 
 PI = 3.141592653589
@@ -27,7 +28,9 @@ class Camera:
     distortion: torch.Tensor   # () Panini distortion parameter
 
     @staticmethod
-    def make(pos, target, fov=40.0, distortion=40.0, device="cpu") -> "Camera":
+    def make(pos, target, fov=40.0, distortion=40.0,
+             device=DEFAULT_DEVICE) -> "Camera":
+        device = resolve(device)
         f = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
         return Camera(f(pos), f(target), f(fov), f(distortion))
 

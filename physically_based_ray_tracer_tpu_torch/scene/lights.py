@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class LightSet:
@@ -35,7 +37,9 @@ class LightSet:
              dir_pos=None, dir_color=None,
              spot_pos=None, spot_color=None, spot_rot=None,
              area_pos=None, area_color=None, area_u=None, area_v=None,
-             device="cpu") -> "LightSet":
+             device=DEFAULT_DEVICE) -> "LightSet":
+        device = resolve(device)
+
         def arr(x):
             if x is None:
                 return torch.zeros((0, 3), dtype=torch.float32, device=device)

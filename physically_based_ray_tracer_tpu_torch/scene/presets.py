@@ -15,11 +15,13 @@ from physically_based_ray_tracer_tpu_torch.scene.procedural import (make_quad,
                                                                     make_sphere)
 from physically_based_ray_tracer_tpu_torch.scene.scene import (
     Instance, MeshModel, build_scene_instanced)
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
 
 def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
-                      device="cpu"):
+                      device=DEFAULT_DEVICE):
     """Returns (scene_data, camera, depth) on ``device``."""
+    device = resolve(device)
     sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=32, lon=64),
                                 base_color=(0.8, 0.3, 0.2), roughness=0.4,
                                 metalness=0.2)
@@ -31,7 +33,7 @@ def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
         point_color=[[20, 20, 20], [10, 12, 14], [6, 6, 6], [8, 4, 2]],
         dir_pos=[[5, 8, 3]], dir_color=[[1.5, 1.4, 1.2]],
         spot_pos=[[0, 4, 0]], spot_color=[[8, 8, 8]], spot_rot=[[0, -1, 0]],
-    )
+        device=device)
     instances = [Instance(0, position=(dx, 0, dz))
                  for dx in (-2.2, 0.0, 2.2) for dz in (-2.2, 0.0, 2.2)]
     instances.append(Instance(1))

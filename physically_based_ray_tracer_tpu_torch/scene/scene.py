@@ -25,6 +25,7 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import (GROUP_ROWS,
                                                              build_dense,
                                                              build_dense_tlas)
 from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
+from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.math import (
     compose_trs, inverse_transpose_3x3, transform_points)
 
@@ -168,7 +169,7 @@ def _assemble(models, dense, baked, lights, sky, device):
     tex_record, texel_pool = _texture_pool(models)
     if sky is None:
         sky = np.zeros((1, 1, 3), np.float32)
-    lights = lights if lights is not None else LightSet.make()
+    lights = lights if lights is not None else LightSet.make(device=device)
     arrays = dict(
         tri_v0=v0, tri_e1=tri[:, 1] - v0, tri_e2=tri[:, 2] - v0,
         face_normal=baked["face_n"], corner_normal=baked["normals"],
@@ -198,7 +199,7 @@ def _from_arrays(arrays: dict, dense: DenseBVH, lights: LightSet,
     return SceneData(dense=dense, lights=lights, **kw)
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
+def scene_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> SceneData:
     """The port's SceneData from the JAX package's SceneData fields.
 
     ``arrays`` maps each SceneData field name to ``np.asarray`` of the JAX
@@ -208,6 +209,7 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
     arrays). ``groups_bf`` keeps its bf16 bits (``DenseBVH.from_numpy``).
     The legacy ``bvh`` field is not read. Tests use this so that both
     packages trace identical tables."""
+    device = resolve(device)
     d = arrays["dense"]
     dense = DenseBVH.from_numpy(d["nodes16"], d["groups"], d["inst16"],
                                 d["prim_base"], d["world_lo"], d["world_hi"],
@@ -224,9 +226,10 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
 def build_scene(models: list[MeshModel], instances: list[Instance],
                 lights: LightSet | None = None, sky: np.ndarray | None = None,
                 dense_leaf_target: int = 16, dense_shape: bool = True,
-                device="cpu") -> tuple[SceneData, int]:
+                device=DEFAULT_DEVICE) -> tuple[SceneData, int]:
     """Bake instances to world space, build the single-level dense BVH.
     Returns (scene_data, depth)."""
+    device = resolve(device)
     baked = _bake_world(models, instances)
     dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
                                shape=dense_shape)
@@ -257,7 +260,7 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           dense_leaf_target: int = 16,
                           dense_shape: bool = True,
                           flatten: bool | str = False,
-                          device="cpu",
+                          device=DEFAULT_DEVICE,
                           ) -> tuple[SceneData, TLASMeta | None, int]:
     """Two-level build: shared BLAS per model + TLAS over instances.
 
@@ -266,6 +269,7 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
     the fast-memory check; True forces flattening.
 
     Returns (scene_data, tlas_meta or None when flattened, depth)."""
+    device = resolve(device)
     baked = _bake_world(models, instances)
     do_flatten = (flatten is True) or (
         flatten == "auto" and len(instances) <= FLATTEN_MAX_INSTANCES

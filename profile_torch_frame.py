@@ -4,12 +4,14 @@
     python3 profile_torch_frame.py
 
 Renders the benchmark frame (bench scene, 1280x720, 4 bounces, AA, one
-shadow ray) with the default bf16 engine and then with the exact f32 engine:
-for each, once to warm up, then once under ``torch.profiler``. Prints per
-engine the frame's wall time, the summed device time of all kernels and of
-the traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``),
-the device-busy share of the wall time and the kernel launch count, and the
-top 30 operators by device time.
+shadow ray) with the default bf16 engine, then with the exact f32 engine,
+then with the row-parallel exact engine (``traversal="pallas_rows"``): for
+each, once to warm up, then once under ``torch.profiler``. Prints per engine
+the frame's wall time, the summed device time of all kernels and of the
+traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``, B3
+``traverse_rows_kernel``) with their launch counts, the device-busy share of
+the wall time and the kernel launch count, and the top 30 operators by
+device time.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import sys
 import time
 
 
-def _profile(scene, cam, cfg, dev, card):
+def _profile(label, scene, cam, cfg, dev, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
@@ -43,10 +45,12 @@ def _profile(scene, cam, cfg, dev, card):
     dev_ms = sum(t for _, t in kernels) / 1e3
     b2 = [t for n, t in kernels if "traverse_bf16_kernel" in n]
     b1 = [t for n, t in kernels if "traverse_kernel" in n and "bf16" not in n]
+    b3 = [t for n, t in kernels if "traverse_rows_kernel" in n]
     print(f"card: {card}")
-    print(f"frame 1280x720 {cfg.leaf_precision}: wall {wall_ms:.2f} ms, device "
+    print(f"frame 1280x720 {label}: wall {wall_ms:.2f} ms, device "
           f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), B2 {sum(b2) / 1e3:.2f} ms "
           f"({len(b2)} launches), B1 {sum(b1) / 1e3:.2f} ms ({len(b1)} launches), "
+          f"B3 {sum(b3) / 1e3:.2f} ms ({len(b3)} launches), "
           f"device busy {100 * dev_ms / wall_ms:.1f}%")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
@@ -69,8 +73,9 @@ def main() -> int:
     scene, cam, _ = build_bench_scene(device=dev)
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
-    for precision in ("bf16", "f32"):
-        _profile(scene, cam, cfg.replace(leaf_precision=precision), dev, card)
+    for label, c in (("bf16", cfg), ("f32", cfg.replace(leaf_precision="f32")),
+                     ("pallas_rows", cfg.replace(traversal="pallas_rows"))):
+        _profile(label, scene, cam, c, dev, card)
     return 0
 
 

@@ -67,7 +67,7 @@ def _two_level():
 def _port(jd):
     """The port's DenseBVH with the JAX package's tables (bf16 bits kept)."""
     return tdense.DenseBVH.from_numpy(**{k: np.asarray(getattr(jd, k)) for k in jd._fields
-                                         if getattr(jd, k) is not None})
+                                         if getattr(jd, k) is not None}, device="cpu")
 
 
 def _rays(n, seed, radius=7.0):

@@ -1,9 +1,12 @@
 """Port-wide contracts: nothing of JAX or of the JAX package anywhere in the
 port, a configuration that mirrors the JAX package's, every option it does
-not carry raises NotImplementedError, and the GPU smoke run refuses to run
-(without printing a result) where there is no GPU or no port."""
+not carry raises NotImplementedError (before any device work), every entry
+point runs on the CUDA card unless asked for the CPU, and the GPU smoke run
+refuses to run (without printing a result) where there is no GPU or no
+port."""
 
 import dataclasses
+import inspect
 import os
 import shutil
 import subprocess
@@ -17,13 +20,19 @@ import torch  # noqa: E402
 
 from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.render.film import FilmState  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer  # noqa: E402
-from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays  # noqa: E402
-from tests.torch_port import (SLICE_CFG, instanced_scene, port_camera,  # noqa: E402
-                              port_config, port_scene)
+from physically_based_ray_tracer_tpu_torch.scene import scene as tscene  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene.camera import Camera, primary_rays  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene  # noqa: E402
+from tests.torch_port import (SLICE_CFG, instanced_parts, instanced_scene,  # noqa: E402
+                              port_camera, port_config, port_instances,
+                              port_models, port_scene, scene_arrays)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "physically_based_ray_tracer_tpu_torch"
@@ -38,6 +47,7 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "physically_based_ray_tracer_tpu_torch.ops.trace" in mods
     assert "physically_based_ray_tracer_tpu_torch.ops.trace_bf16" in mods
+    assert "physically_based_ray_tracer_tpu_torch.ops.trace_rows" in mods
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -75,7 +85,7 @@ def test_config_mirrors_jax():
 @pytest.mark.parametrize("kw,name", [
     (dict(leaf_precision="fp16"), "leaf_precision"),
     (dict(traversal="wave"), "traversal"),
-    (dict(traversal="pallas_rows"), "traversal"),
+    (dict(traversal="lane"), "traversal"),
     (dict(rendering_mode=RenderMode.BASECOLOR), "rendering_mode"),
     (dict(rendering_mode=RenderMode.DEPTH), "rendering_mode"),
     (dict(post_processed=True), "post_processed"),
@@ -91,8 +101,11 @@ def test_unported_options_raise(kw, name):
         check_supported(cfg, scene)
     with pytest.raises(NotImplementedError, match=name):
         render_sample(scene, cam, cfg, 0, 0, torch.arange(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match=name):
-        Renderer(scene, cam, cfg)
+    # refused before any device work: also with the default device (the
+    # card), where there is none
+    for device in ({}, {"device": "cpu"}):
+        with pytest.raises(NotImplementedError, match=name):
+            Renderer(scene, cam, cfg, **device)
 
 
 def test_default_config_and_sky_raise():
@@ -100,15 +113,72 @@ def test_default_config_and_sky_raise():
     refused."""
     jscene, jcam = instanced_scene()
     scene, cam = port_scene(jscene), port_camera(jcam)
-    r = Renderer(scene, cam, RenderConfig(width=8, height=8))
+    r = Renderer(scene, cam, RenderConfig(width=8, height=8), device="cpu")
     assert r.config.leaf_precision == "bf16"
     sky_scene = dataclasses.replace(scene, sky=torch.ones((4, 8, 3)))
     cfg = port_config(SLICE_CFG)
     with pytest.raises(NotImplementedError, match="skybox"):
-        Renderer(sky_scene, cam, cfg.replace(skybox=True))
-    Renderer(sky_scene, cam, cfg.replace(skybox=False))   # sky unused: fine
+        Renderer(sky_scene, cam, cfg.replace(skybox=True), device="cpu")
+    Renderer(sky_scene, cam, cfg.replace(skybox=False), device="cpu")   # sky unused: fine
     with pytest.raises(NotImplementedError, match="Panini"):
         primary_rays(cam, torch.zeros(2), torch.zeros(2), 8, 8, panini=True)
+
+
+@pytest.mark.parametrize("leaf_precision", ["bf16", "f32"])
+def test_rows_engine_supported(leaf_precision):
+    """traversal="pallas_rows" is carried, whatever leaf_precision says (it
+    does not apply to that engine, as in the JAX package)."""
+    jscene, jcam = instanced_scene()
+    scene, cam = port_scene(jscene), port_camera(jcam)
+    cfg = port_config(SLICE_CFG).replace(traversal="pallas_rows",
+                                         leaf_precision=leaf_precision)
+    check_supported(cfg, scene)
+    r = Renderer(scene, cam, cfg, device="cpu")
+    assert r.device == torch.device("cpu")
+
+
+def _entry_points():
+    """Every entry point that allocates, called without ``device=``."""
+    models, instances, lights, jcam = instanced_parts()
+    jscene, _ = instanced_scene()
+    arrays = scene_arrays(jscene)
+    d = arrays["dense"]
+    scene = port_scene(jscene)
+    cam = port_camera(jcam)
+    return {
+        "Renderer": (Renderer.__init__, lambda: Renderer(scene, cam, port_config(SLICE_CFG))),
+        "build_bench_scene": (build_bench_scene, build_bench_scene),
+        "scene_from_numpy": (tscene.scene_from_numpy,
+                             lambda: tscene.scene_from_numpy(arrays)),
+        "build_scene": (tscene.build_scene, lambda: tscene.build_scene(
+            port_models(models), port_instances(instances))),
+        "build_scene_instanced": (tscene.build_scene_instanced,
+                                  lambda: tscene.build_scene_instanced(
+                                      port_models(models), port_instances(instances))),
+        "Camera.make": (Camera.make, lambda: Camera.make((0, 2, 6), (0, 0, 0))),
+        "LightSet.make": (LightSet.make, lambda: LightSet.make(point_pos=[[0, 1, 0]])),
+        "DenseBVH.from_numpy": (DenseBVH.from_numpy, lambda: DenseBVH.from_numpy(
+            d["nodes16"], d["groups"], d["inst16"], d["prim_base"], d["world_lo"],
+            d["world_hi"])),
+        "FilmState.zeros": (FilmState.zeros, lambda: FilmState.zeros(16)),
+    }
+
+
+ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scene",
+                "build_scene_instanced", "Camera.make", "LightSet.make",
+                "DenseBVH.from_numpy", "FilmState.zeros"]
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_points_default_to_the_card(name):
+    """Each entry point's device defaults to the CUDA card; without one, a
+    call that does not ask for the CPU raises instead of running there."""
+    fn, call = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default call would run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

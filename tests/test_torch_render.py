@@ -96,7 +96,7 @@ def test_renderer_ticks_accumulate():
     img1 = r.tick(0)
     assert img0.shape == (16, 16, 3) and np.isfinite(img1).all()
     ids = torch.from_numpy(trenderer.morton_pixel_order(16, 16))
-    film = trenderer.film_mod.FilmState.zeros(256)
+    film = trenderer.film_mod.FilmState.zeros(256, device="cpu")
     for s in range(2):
         film, avg = trenderer.frame_fn(scene, cam, film, 0, s, ids, cfg=cfg)
     want = np.empty((256, 3), np.float32)

@@ -110,7 +110,7 @@ def test_build_dense_tlas_identical():
 def test_bench_scene_identical(flatten):
     """The benchmark scene: two-level under flatten="auto" (369 nodes, 361
     groups, 10 instances), one-level when forced flat."""
-    t, tcam, tdepth = build_bench_scene(flatten=flatten)
+    t, tcam, tdepth = build_bench_scene(flatten=flatten, device="cpu")
     j, jcam, jdepth = jax_bench_scene(flatten=flatten)
     _same_scene(t, j)
     assert tdepth == jdepth
@@ -135,15 +135,15 @@ def test_test_scenes_identical(which):
                      else scenes.cornell_scene())
     finally:
         mp.undo()
-    lights = scene_from_numpy(scene_arrays(jscene)).lights
+    lights = scene_from_numpy(scene_arrays(jscene), device="cpu").lights
     if which == "sphere":     # the port's own LightSet.make + pad_points
         lights = LightSet.make(
             point_pos=[[2, 3, 2]], point_color=[[20, 20, 20]],
             dir_pos=[[5, 8, 3]], dir_color=[[1.5, 1.4, 1.2]],
             spot_pos=[[0, 4, 0]], spot_color=[[8, 8, 8]], spot_rot=[[0, -1, 0]],
-        ).pad_points(4)
+            device="cpu").pad_points(4)
     tscene, _ = build_scene(port_models(built["models"]),
-                            port_instances(built["instances"]), lights)
+                            port_instances(built["instances"]), lights, device="cpu")
     _same_scene(tscene, jscene)
 
 
@@ -153,10 +153,10 @@ def test_instanced_auto_flatten_identical():
     models, instances, lights, _ = instanced_parts()
     j, jmeta, jdepth = jbuild_scene_instanced(models, instances, lights,
                                               legacy_bvh=False, flatten="auto")
-    tl = scene_from_numpy(scene_arrays(j)).lights
+    tl = scene_from_numpy(scene_arrays(j), device="cpu").lights
     t, tmeta, tdepth = build_scene_instanced(port_models(models),
                                              port_instances(instances), tl,
-                                             flatten="auto")
+                                             flatten="auto", device="cpu")
     _same_scene(t, j)
     assert (tmeta is None) == (jmeta.tlas_meta is None)
     assert tdepth == jdepth
@@ -183,6 +183,6 @@ def test_bf16_packing_identical(leaf_target):
     t = tdense.DenseBVH.from_numpy(
         *(np.asarray(getattr(j, f)) for f in DENSE_FIELDS),
         groups_bf=np.asarray(j.groups_bf), glo=np.asarray(j.glo),
-        pids_c=np.asarray(j.pids_c))
+        pids_c=np.asarray(j.pids_c), device="cpu")
     assert t.groups_bf.dtype == torch.bfloat16
     _same_dense(t, j)

@@ -48,7 +48,7 @@ TABLES = {"one-level": _one_level, "two-level": _two_level}
 
 def _port(jd):
     return DenseBVH.from_numpy(*(np.asarray(getattr(jd, f)) for f in (
-        "nodes16", "groups", "inst16", "prim_base", "world_lo", "world_hi")))
+        "nodes16", "groups", "inst16", "prim_base", "world_lo", "world_hi")), device="cpu")
 
 
 def _rays(n, seed, radius=7.0):

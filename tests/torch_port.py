@@ -57,12 +57,12 @@ def scene_arrays(jscene) -> dict:
 
 
 def port_scene(jscene):
-    return scene_from_numpy(scene_arrays(jscene))
+    return scene_from_numpy(scene_arrays(jscene), device="cpu")
 
 
 def port_camera(jcam):
     return Camera.make(np.asarray(jcam.pos), np.asarray(jcam.target),
-                       float(jcam.fov), float(jcam.distortion))
+                       float(jcam.fov), float(jcam.distortion), device="cpu")
 
 
 def port_models(jmodels):
