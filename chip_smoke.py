@@ -6,11 +6,13 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
-port's three traversal kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32
-engine), ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the
-``RenderConfig`` default) and ``csrc/traverse_rows.cu`` (B3, the row-parallel
-exact engine, ``traversal="pallas_rows"``), with one ``nvcc`` each, started
-together (into ``build/torch_kernels/``), then:
+port's five kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32 engine),
+``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the ``RenderConfig``
+default), ``csrc/traverse_rows.cu`` (B3, the row-parallel exact engine,
+``traversal="pallas_rows"``), ``csrc/leaf_mt.cu`` (B4, the wave engine's
+dense leaf phase) and ``csrc/wave_scan.cu`` (the wave engine's node scan, a
+port-only kernel), with one ``nvcc`` each, started together (into
+``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
    the kernel build times and ptxas register / spill reports;
@@ -73,7 +75,23 @@ together (into ``build/torch_kernels/``), then:
    4096 pixels with the f32 engine (>= 99% of pixels allclose at rtol 2e-4,
    atol 2e-5) and 1536 with the bf16 engine (>= 98%; its plain version is
    ~2.5x slower on the CPU);
-10. prints the kernels' JSON line, the card line and, last,
+10. the wave engine (``traversal="wave"``, on the bench scene's classic BVH,
+   built with ``legacy_bvh=True``): (a) B4 and the node-scan kernel vs their
+   plain versions on every wave of one full engine call per set and mode
+   (the sorted wrappers on the first 122,880 rays of each set: one AA chunk
+   of the frame, 960 tiles of 128 at level 0 of the cascade and 120 at
+   level 1): the scan's cur, sp, stack, nleaf, leafbuf and active equal,
+   B4's t, u, v, prim bit-equal and its occlusion equal; each kernel timed
+   (CUDA events) on the call's wave with the most triangle tests, its bound
+   from that wave's work (``count_work`` of ``ops/leaf_mt.py`` and
+   ``ops/wave_scan.py``); (b) the whole wave engine vs B1 on the three
+   131,072-ray sets: found and occlusion mismatch each <= 0.01%, the same
+   prim on >= 99.95% of the rays both hit, waves and launches per call
+   printed; (c) the main path with ``traversal="wave"``: one warm-up and one
+   timed tick, B4 (both modes) and the scan kernel launched, B1-B3 never,
+   plain versions never, no truncated push, a finite image, >= 99.99% of
+   pixels allclose (rtol 2e-4, atol 2e-5) to the f32 frame of the same key;
+11. prints the kernels' JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -100,6 +118,11 @@ KERNELS = {
                       "physically_based_ray_tracer_tpu/ops/pallas_bf16.py:175"),
     "traverse_rows": (f"{PKG}/csrc/traverse_rows.cu",
                       "physically_based_ray_tracer_tpu/ops/pallas_rows.py:54"),
+    "leaf_mt": (f"{PKG}/csrc/leaf_mt.cu",
+                "physically_based_ray_tracer_tpu/ops/pallas_mt.py:30"),
+    # port-only: replaces XLA code (a lax.scan), not a TPU kernel
+    "wave_scan": (f"{PKG}/csrc/wave_scan.cu",
+                  "physically_based_ray_tracer_tpu/ops/traverse_packet.py:381"),
 }
 T_RTOL = 1e-6
 PLAIN_RUNS = 2          # timed runs of each plain version (each ~1-2 s)
@@ -118,6 +141,13 @@ OUT_BYTES = {("f32", "closest"): 20, ("f32", "any"): 1, ("rows", "closest"): 20,
              ("rows", "any"): 1, ("bf16", "closest"): 12, ("bf16", "any"): 2}
 BF16_CHUNK = 1536
 F32_CHUNK = 4096
+WAVE_RAYS = 122880      # one AA chunk of the bench frame: 960 tiles of 128
+# the wave engine vs B1 and vs the f32 frame: what the card showed (0 found /
+# occlusion mismatch, >= 99.992% same prim, 100% of pixels allclose) with
+# room for t-ties between the two trees
+WAVE_FRAME_CLOSE = 0.9999
+WAVE_VS_B1 = 1e-4       # the most found / occlusion mismatch vs B1
+WAVE_SAME_PRIM = 0.9995
 
 
 def _smi() -> str:
@@ -353,18 +383,25 @@ def _contract_bf16_vs_f32(name, dbvh, o, d, tm, report, closest_gate):
     _check(r["occ_mismatch"] < 0.005, f"{name}: bf16 vs f32 occlusion mismatch")
 
 
-def _time_ms(fn, runs=10, warmup=True):
+def _time_ms(fn, runs=10, warmup=True, setup=None, ahead=False):
     """Median over ``runs`` of one call timed by CUDA events, after a warm-up
-    (plain versions compile nothing and need none)."""
+    (plain versions compile nothing and need none). ``setup()`` makes the
+    call's arguments outside the timed span (fresh copies of state a kernel
+    updates in place). ``ahead``: the card first sleeps ~1 ms, so that the
+    host queues the events and the launch before the card reaches them and
+    a kernel of a few microseconds is timed without its wrapper's host time."""
     import torch
     if warmup:
-        fn()
+        fn(*(setup() if setup else ()))
     times = []
     for _ in range(runs):
+        args = setup() if setup else ()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(2_000_000)
         a.record()
-        fn()
+        fn(*args)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
@@ -408,6 +445,186 @@ def _frame(renderer, ticks, counters):
     return first, img, warm, ms, counts
 
 
+def _bits(x):
+    """A tensor's bits for exact comparison (floats as int32)."""
+    import torch
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+class _WaveCheck:
+    """Entered around one wave-engine call: every wave's scan and B4 launch
+    is held against its plain version on that wave's own inputs (the scan's
+    cur, sp, stack, nleaf, leafbuf, active equal; B4's t, u, v, prim
+    bit-equal or its occlusion equal), at every level of the cascade. It
+    swaps the module functions the engine calls for checking ones while
+    entered, and keeps the wave with the most triangle tests for timing."""
+
+    SCAN_IN = ("o_lo", "o_hi", "rd_lo", "rd_hi", "t_tile")
+
+    def __init__(self, mode, level0_tiles):
+        self.mode, self.level0_tiles = mode, level0_tiles
+        self.r = dict(waves=0, level1_waves=0, scan_mismatch=0, b4_mismatch=0,
+                      t_max_abs=0.0, tri_tests=0)
+        self.heavy = None
+
+    def __enter__(self):
+        from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
+        self.mods = (wave_scan, leaf_mt)
+        self.dense_name = "leaf_intersect" if self.mode == "closest" else "leaf_any"
+        self.real = (wave_scan.node_scan, getattr(leaf_mt, self.dense_name))
+        wave_scan.node_scan = self.scan
+        setattr(leaf_mt, self.dense_name, self.dense)
+        return self
+
+    def __exit__(self, *exc):
+        wave_scan, leaf_mt = self.mods
+        wave_scan.node_scan = self.real[0]
+        setattr(leaf_mt, self.dense_name, self.real[1])
+        return False
+
+    def scan(self, bvh, st, node_steps, leaf_cap):
+        wave_scan = self.mods[0]
+        scan_in = {k: st[k] for k in self.SCAN_IN}
+        scan_in.update((k, st[k].clone()) for k in wave_scan.STATE_KEYS)
+        got = self.real[0](bvh, st, node_steps, leaf_cap)
+        want = wave_scan.plain_node_scan(bvh, scan_in, node_steps, leaf_cap)
+        self.r["scan_mismatch"] += sum(int((a != b).sum()) for a, b in zip(got, want))
+        self.scan_in = scan_in
+        return got
+
+    def dense(self, o_t, d_t, tmax_t, *rest, leaf_size):
+        leaf_mt = self.mods[1]
+        *state, leafbuf, nleaf, tris = rest
+        state0 = [x.clone() for x in state]
+        self.real[1](o_t, d_t, tmax_t, *rest, leaf_size=leaf_size)
+        if self.mode == "closest":
+            want = leaf_mt.plain_leaf_intersect(o_t, d_t, tmax_t, *state0, leafbuf, nleaf,
+                                                tris, leaf_size)
+            self.r["t_max_abs"] = max(self.r["t_max_abs"],
+                                      float((state[0] - want[0]).abs().max()))
+        else:
+            want = (leaf_mt.plain_leaf_any(o_t, d_t, tmax_t, *state0, leafbuf, nleaf,
+                                           tris, leaf_size),)
+        self.r["b4_mismatch"] += sum(int((_bits(a) != _bits(b)).sum())
+                                     for a, b in zip(state, want))
+        T, W = tmax_t.shape
+        tests = int(leaf_mt.leaf_columns(leafbuf, nleaf, leaf_size)[1].sum()) * W
+        self.r["tri_tests"] += tests
+        self.r["level1_waves"] += int(T < self.level0_tiles)
+        if self.heavy is None or tests > self.heavy["tests"]:
+            self.heavy = dict(tests=tests, scan_in=self.scan_in, rays=(o_t, d_t, tmax_t),
+                              leafbuf=leafbuf.clone(), nleaf=nleaf.clone(), state0=state0,
+                              tris=tris, leaf_size=leaf_size, wave=self.r["waves"], tiles=T)
+        self.r["waves"] += 1
+        return state[0] if self.mode == "any" else tuple(state)
+
+
+def _wave_kernel_checks(bvh, sets, card):
+    """B4 and the scan kernel vs their plain versions on every wave of one
+    full engine call per set and mode (the sorted wrappers on the first
+    WAVE_RAYS rays of the set: one AA chunk of the frame, both cascade
+    levels); then each kernel timed on the call's wave with the most
+    triangle tests, with that wave's bound. Returns {(kernel, set, mode):
+    dict}."""
+    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    out = {}
+    level1 = 0
+    for sname, (o, d, tm) in sets.items():
+        o, d, tm = o[:WAVE_RAYS], d[:WAVE_RAYS], tm[:WAVE_RAYS]
+        for mode in ("closest", "any"):
+            closest = mode == "closest"
+            tp.reset_counts()
+            with _WaveCheck(mode, WAVE_RAYS // 128) as chk:
+                if closest:
+                    tp.sorted_closest(tp.intersect_closest_wave, bvh, o, d, tm)
+                else:
+                    tp.sorted_any(tp.intersect_any_wave, bvh, o, d, tm)
+            r = chk.r
+            print(f"  wave {sname} {mode}, every wave: {json.dumps(r)}", flush=True)
+            _check(r["waves"] == tp.WAVES[mode] > 0, f"wave {sname} {mode}: waves unchecked")
+            _check(r["scan_mismatch"] == 0, f"wave {sname} {mode}: scan kernel != plain")
+            _check(r["b4_mismatch"] == 0, f"wave {sname} {mode}: B4 != plain")
+            _check(wave_scan.truncated_pushes(o.device) == 0, "scan stack overflow")
+            level1 += r["level1_waves"]
+
+            # times and bounds on the heaviest wave
+            h = chk.heavy
+            rays, lb, nl, tris, K = h["rays"], h["leafbuf"], h["nleaf"], h["tris"], h["leaf_size"]
+            T, W = rays[2].shape
+            fresh = lambda: [x.clone() for x in h["state0"]]
+            if closest:
+                k_fn = lambda *s: leaf_mt.leaf_intersect(*rays, *s, lb, nl, tris, leaf_size=K)
+                p_fn = lambda *s: leaf_mt.plain_leaf_intersect(*rays, *s, lb, nl, tris, K)
+            else:
+                k_fn = lambda *s: leaf_mt.leaf_any(*rays, *s, lb, nl, tris, leaf_size=K)
+                p_fn = lambda *s: leaf_mt.plain_leaf_any(*rays, *s, lb, nl, tris, K)
+            b4_work = leaf_mt.count_work(lb, nl, W, K, mode)
+            scan_work = wave_scan.count_work(bvh, h["scan_in"], 8, lb.shape[1])
+            scan_fresh = lambda: [dict(h["scan_in"], **{k: h["scan_in"][k].clone()
+                                                        for k in wave_scan.STATE_KEYS})]
+            for name, fn, pfn, setup, work, err in (
+                    ("leaf_mt", k_fn, p_fn, fresh, b4_work,
+                     r["t_max_abs"] if closest else float(r["b4_mismatch"] > 0)),
+                    ("wave_scan", lambda s: wave_scan.node_scan(bvh, s, 8, 4),
+                     lambda s: wave_scan.plain_node_scan(bvh, s, 8, 4), scan_fresh,
+                     scan_work, float(r["scan_mismatch"] > 0))):
+                k_ms = _time_ms(fn, runs=20, setup=setup, ahead=True)
+                p_ms = _time_ms(pfn, runs=PLAIN_RUNS, warmup=False, setup=setup)
+                t_ops = work["ops"]["f32"] / PEAK_OPS["f32"]
+                t_bytes = work["bytes"] / PEAK_BYTES
+                b_ms = max(t_ops, t_bytes) * 1e3
+                out[(name, sname, mode)] = dict(
+                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err)
+                print(f"time {name} {mode:7s} {sname:7s} wave {h['wave']} of {T} tiles: "
+                      f"kernel {k_ms:.5f} ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
+                      f"({out[(name, sname, mode)]['bound_by']}: {json.dumps(work)}), "
+                      f"bound / kernel {100 * b_ms / k_ms:.2f}% [{card}]", flush=True)
+    _check(level1 > 0, "no level-1 wave was checked")
+    return out
+
+
+def _wave_vs_b1(scene_w, dbvh, sets, card):
+    """The whole wave engine (through its sorted wrappers) vs B1 on the same
+    rays; prints the rates, waves and launches of each call."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, trace, wave_scan
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    bvh = scene_w.bvh
+    for sname, (o, d, tm) in sets.items():
+        calls = {}
+        for mode in ("closest", "any"):
+            for m in (leaf_mt, wave_scan, tp):
+                m.reset_counts()
+            t0 = time.perf_counter()
+            if mode == "closest":
+                res = tp.sorted_closest(tp.intersect_closest_wave, bvh, o, d, tm)
+            else:
+                res = tp.sorted_any(tp.intersect_any_wave, bvh, o, d, tm)
+            torch.cuda.synchronize()
+            calls[mode] = (res, (time.perf_counter() - t0) * 1e3, tp.WAVES[mode],
+                           leaf_mt.LAUNCHES[mode], wave_scan.LAUNCHES["scan"])
+        hw, occ_w = calls["closest"][0], calls["any"][0]
+        h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+        occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
+        fw, f1 = hw.prim >= 0, h1.prim >= 0
+        both = fw & f1
+        r = dict(found_mismatch=float((fw != f1).float().mean()),
+                 same_prim=float(((hw.prim == h1.prim) & both).sum() / both.sum().clamp(min=1)),
+                 t_max_rel=float(((hw.t - h1.t).abs() / h1.t.abs())[both].max()),
+                 occ_mismatch=float((occ_w != occ1).float().mean()))
+        print(f"  wave vs B1 {sname}: {json.dumps(r)}", flush=True)
+        for mode, (_, ms, waves, b4, scans) in calls.items():
+            print(f"  wave engine {mode:7s} {sname:7s} {N_RAYS} rays: {ms:.1f} ms host "
+                  f"clock, {waves} waves, {b4} B4 + {scans} scan launches [{card}]",
+                  flush=True)
+        _check(r["found_mismatch"] <= WAVE_VS_B1, f"{sname}: wave vs B1 found mismatch")
+        _check(r["same_prim"] >= WAVE_SAME_PRIM, f"{sname}: wave vs B1 prim agreement")
+        _check(r["occ_mismatch"] <= WAVE_VS_B1, f"{sname}: wave vs B1 occlusion mismatch")
+        _check(wave_scan.truncated_pushes(o.device) == 0, "wave engine stack overflow")
+
+
 def _chunk_gpu_vs_cpu(renderer, cfg, n, frac, what):
     """render_sample of ``n`` pixels on the GPU (kernels) and on the CPU
     (plain versions), same key; >= ``frac`` of pixels allclose."""
@@ -440,7 +657,9 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from physically_based_ray_tracer_tpu_torch import RenderConfig
-    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16, trace_rows
+    from physically_based_ray_tracer_tpu_torch.ops import (_build, leaf_mt, trace, trace_bf16,
+                                                          trace_rows, wave_scan)
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
     from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
 
@@ -450,7 +669,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = _smi()
     print(f"card: {card}", flush=True)
-    engines = (trace, trace_bf16, trace_rows)
+    engines = (trace, trace_bf16, trace_rows, leaf_mt, wave_scan)
 
     # 1. build
     with _Phase("build"):
@@ -476,6 +695,12 @@ def main() -> int:
               flush=True)
         _check(scene2.dense.two_level and not scene1.dense.two_level,
                "flatten='auto' must keep the bench scene two-level")
+        t0 = time.perf_counter()
+        scene_w, _, depth_w = build_bench_scene(legacy_bvh=True, device=dev)
+        print(f"classic BVH (legacy_bvh=True): {scene_w.bvh.n_nodes} nodes, "
+              f"{scene_w.bvh.n_prims} triangle slots, scene depth {depth_w}, built in "
+              f"{time.perf_counter() - t0:.1f} s (g++ included)", flush=True)
+        _check(scene2.bvh is None and scene_w.bvh is not None, "classic BVH only when asked")
         sets = _ray_sets(scene2, cam, cfg, dev)
     tables = (("two-level", scene2), ("one-level", scene1))
 
@@ -581,6 +806,12 @@ def main() -> int:
                                              trace_bf16.truncated_rays(dev))),
                "rays truncated by a counting launch")
 
+    # 10a-b. the wave engine's kernels vs plain, the wave engine vs B1
+    with _Phase("wave: B4 and scan kernel vs plain, times"):
+        wave_k = _wave_kernel_checks(scene_w.bvh, sets, card)
+    with _Phase("wave engine vs B1"):
+        _wave_vs_b1(scene_w, scene2.dense, sets, card)
+
     # 6. the main path, default configuration (bf16 engine)
     with _Phase("main path, bf16 (default config)"):
         r16 = Renderer(scene2, cam, cfg, device=dev)
@@ -596,6 +827,8 @@ def main() -> int:
                "the bf16 main path did not launch both B2 modes")
         _check(plain16 == 0, "the bf16 main path called a plain version")
         _check(sum(counts["trace_rows"][0].values()) == 0, "the bf16 path launched B3")
+        _check(sum(counts["leaf_mt"][0].values()) + counts["wave_scan"][0]["scan"] == 0,
+               "the bf16 path launched a wave kernel")
         _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
                "bf16 image not finite or of the wrong shape")
         print(f"image finite, mean {float(img.mean()):.6f}", flush=True)
@@ -655,6 +888,40 @@ def main() -> int:
               f"{float(np.abs(first_rows - first32).max()):.3e}", flush=True)
         _check(close.mean() >= ROWS_FRAME_CLOSE, "pallas_rows frame vs f32 frame")
 
+    # 10c. the main path with the wave engine, vs the f32 frame
+    with _Phase("main path, wave"):
+        cfg_wave = cfg.replace(traversal="wave")
+        _check((cfg_wave.dense, cfg_wave.packet_tile, cfg_wave.wave_shrink,
+                cfg_wave.max_stack_depth, cfg_wave.leaf_size, cfg_wave.sort_rays)
+               == ("mt", 128, 8, 48, 16, True), "the wave config's defaults")
+        r_wave = Renderer(scene_w, cam, cfg_wave, device=dev)
+        traverse_packet.reset_counts()
+        first_wave, img, warm, ms, counts = _frame(r_wave, 1, engines)
+        waves = dict(traverse_packet.WAVES)
+        launches_b4, launches_scan = counts["leaf_mt"][0], counts["wave_scan"][0]
+        plain_wave = sum(sum(c[1].values()) for c in counts.values())
+        others = {k: counts[k][0] for k in ("trace", "trace_bf16", "trace_rows")}
+        print(f"frame 1280x720 4 bounces AA wave: warm-up {warm:.2f} s, "
+              f"{ms[0]:.2f} ms [{card}]", flush=True)
+        print(f"main path (2 frames): waves {waves}, B4 launches {launches_b4}, scan "
+              f"launches {launches_scan}, B1-B3 launches {others}, plain-version calls "
+              f"{plain_wave}", flush=True)
+        _check(launches_b4["closest"] > 0 and launches_b4["any"] > 0,
+               "the wave main path did not launch both B4 modes")
+        _check(launches_scan["scan"] == sum(waves.values()) > 0,
+               "the wave main path did not launch the scan kernel once a wave")
+        _check(all(sum(v.values()) == 0 for v in others.values()),
+               "the wave main path launched B1, B2 or B3")
+        _check(plain_wave == 0, "the wave main path called a plain version")
+        _check(wave_scan.truncated_pushes(dev) == 0, "stack overflow on the wave main path")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               "wave image not finite or of the wrong shape")
+        close = np.isclose(first_wave, first32, rtol=2e-4, atol=2e-5).all(axis=-1)
+        print(f"wave vs f32 frame (first ticks, same key): {close.mean() * 100:.4f}% "
+              f"pixels allclose ({int((~close).sum())} differ), max abs diff "
+              f"{float(np.abs(first_wave - first32).max()):.3e}", flush=True)
+        _check(close.mean() >= WAVE_FRAME_CLOSE, "wave frame vs f32 frame")
+
     # 9. GPU vs CPU chunks
     with _Phase("GPU vs CPU chunks"):
         _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
@@ -686,6 +953,19 @@ def main() -> int:
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does
                 kernels[-1]["union_bound_ms"] = union[(sname, mode)]
+    # the wave kernels, timed on the heaviest checked wave of the sets the
+    # other kernels report; the scan kernel on the closest-hit run
+    for name, mode, launches in (("leaf_mt", "closest", launches_b4["closest"]),
+                                 ("leaf_mt", "any", launches_b4["any"]),
+                                 ("wave_scan", "closest", launches_scan["scan"])):
+        src, replaces = KERNELS[name]
+        w = wave_k[(name, report_sets[mode], mode)]
+        entry = {"name": f"{name}_{mode}" if name == "leaf_mt" else name, "route": "cuda",
+                 "source": src, "replaces": replaces, "launches": launches, **w,
+                 "library_ms": None}
+        if name == "wave_scan":
+            entry["port_only"] = True      # replaces XLA code, not a TPU kernel
+        kernels.append(entry)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)

@@ -78,9 +78,9 @@ class BRDFConfig:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Runtime render flags. The port carries ``traversal="pallas"`` with
-    both engines (``leaf_precision="bf16"``, the default, and ``"f32"``) and
-    refuses the values it does not carry; see
-    ``render.integrator.check_supported``."""
+    both engines (``leaf_precision="bf16"``, the default, and ``"f32"``),
+    ``"pallas_rows"`` and ``"wave"`` (``dense`` "mt" or "woop"), and refuses
+    the values it does not carry; see ``render.integrator.check_supported``."""
 
     width: int = 1280
     height: int = 720

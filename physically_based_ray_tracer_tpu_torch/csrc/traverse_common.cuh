@@ -2,7 +2,9 @@
 // traverse_rows.cu (B3) share: the ray, the slab test and the f32
 // Möller-Trumbore test, and, for B1 and B2, the node and TLAS phase (one
 // thread per ray, a DenseBVH walked with a per-thread stack, leaves handed to
-// a leaf visitor). B3 walks the same tables once per warp instead.
+// a leaf visitor). B3 walks the same tables once per warp instead. The wave
+// engine's kernels (leaf_mt.cu, B4, and wave_scan.cu) take the f32
+// Möller-Trumbore test and the classic BVH's leaf code from here.
 //
 // Semantics copied exactly from the TPU kernels (ops/pallas_trace.py and
 // ops/pallas_bf16.py of the JAX package): the sign-preserving 1e-20
@@ -43,10 +45,21 @@ constexpr int BLOCK = 128;
 // work counters of the counting instantiations: node steps, triangle tests,
 // leaf visits (summed over rays; B3: over warps, times 32 lanes)
 constexpr int N_COUNTERS = 3;
+// the classic BVH's leaf code (bvh/types.py, leaf_mt.cu and wave_scan.cu):
+// c < 0 is a leaf, m = -(c + 1), first slot m >> LEAF_COUNT_BITS, count
+// m & LEAF_COUNT_MASK
+constexpr int LEAF_COUNT_BITS = 7;
+constexpr int LEAF_COUNT_MASK = (1 << LEAF_COUNT_BITS) - 1;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, rdx, rdy, rdz;
 };
+
+__device__ __forceinline__ void decode_leaf(int code, int& first, int& count) {
+  const int m = -(code + 1);
+  first = m >> LEAF_COUNT_BITS;
+  count = m & LEAF_COUNT_MASK;
+}
 
 __device__ __forceinline__ float rcp_safe(float d) {
   const float eps = 1e-20f;

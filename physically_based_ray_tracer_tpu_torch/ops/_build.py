@@ -1,9 +1,10 @@
 """Builds and loads the port's CUDA kernels.
 
 ``nvcc`` compiles each source of ``csrc/`` (``traverse_f32.cu``, kernel B1;
-``traverse_bf16.cu``, kernel B2; ``traverse_rows.cu``, kernel B3) into a
-shared library of its own with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers, so a build takes seconds). The libraries go to ``build/torch_kernels/`` at the
+``traverse_bf16.cu``, kernel B2; ``traverse_rows.cu``, kernel B3;
+``leaf_mt.cu``, kernel B4; ``wave_scan.cu``, the wave engine's node scan)
+into a shared library of its own with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds). The libraries go to ``build/torch_kernels/`` at the
 repository root, each named by a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is reused. Nothing is built or loaded at import: the first
@@ -25,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("traverse_f32", "traverse_bf16", "traverse_rows")}
+           for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "leaf_mt",
+                        "wave_scan")}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # exact IEEE arithmetic (no fast math, no FMA contraction) so that the
 # kernels match their plain PyTorch versions bit for bit
@@ -62,6 +64,17 @@ _SIGNATURES = {
         "pbrt_trace_any_rows": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p], _i),
         "pbrt_trace_count_rows": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
                                    _p, _p, _p, _p, _p, _p, _p, _p, _p], _i),
+    },
+    "leaf_mt": {
+        "pbrt_leaf_mt_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_leaf_mt_closest": ([_p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+                                  _i, _i, _i, _i, _i, _p], _i),
+        "pbrt_leaf_mt_any": ([_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p], _i),
+    },
+    "wave_scan": {
+        "pbrt_wave_scan_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_wave_scan": ([_p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p,
+                            _i, _i, _i, _i, _p, _p], _i),
     },
 }
 

@@ -1,7 +1,8 @@
 """Hit refinement; counterpart of ``refine_hit`` in ``physically_based_ray_tracer_tpu/ops/traverse.py``.
 
-The XLA traversal engines of that module are not ported (the port's
-traversal is ``ops/trace.py``).
+The lane engine of that module (``intersect_closest`` / ``intersect_any``,
+``traversal="lane"``) is not ported; the wave engine is
+``ops/traverse_packet.py``.
 """
 
 from __future__ import annotations

@@ -8,14 +8,17 @@ and its ``lax.cond`` gates are host checks (``alive.any()``): a bounce with
 no live lane is skipped, and a bounce where no live lane hit anything only
 settles the miss bookkeeping. Both change no result.
 
-Three engines are ported, dispatched as the JAX package dispatches them:
+Four engines are ported, dispatched as the JAX package dispatches them:
 ``traversal="pallas"`` with the bf16 engine (``leaf_precision="bf16"``, the
 ``RenderConfig`` default; ``ops/trace_bf16.py``, kernel B2, with its
 uncertain occlusion lanes resolved by B1) or the exact f32 engine
-(``leaf_precision="f32"``; ``ops/trace.py``, kernel B1), and
+(``leaf_precision="f32"``; ``ops/trace.py``, kernel B1);
 ``traversal="pallas_rows"``, the row-parallel exact engine
-(``ops/trace_rows.py``, kernel B3: B1's function, one traversal per warp),
-for which ``leaf_precision`` and ``refine`` do not apply. As in the JAX
+(``ops/trace_rows.py``, kernel B3: B1's function, one traversal per warp);
+and ``traversal="wave"``, the wave engine over the scene's classic BVH
+(``ops/traverse_packet.py``: the node scan ``csrc/wave_scan.cu`` and, for
+``dense="mt"``, kernel B4 ``csrc/leaf_mt.cu``). ``leaf_precision`` and
+``refine`` do not apply to the last two. As in the JAX
 package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups take the f32
 engine even when bf16 is asked for; the launch counters show which engine
 ran. Options the port does not carry raise ``NotImplementedError`` naming
@@ -30,7 +33,8 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import BF_ROWS
 from physically_based_ray_tracer_tpu_torch.config import (
     BVH_FAR, EPSILON, P_DIRECTIONAL, P_POINT, P_SPOT, RenderConfig, RenderMode)
 from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
-from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16, trace_rows
+from physically_based_ray_tracer_tpu_torch.ops import (trace, trace_bf16, trace_rows,
+                                                      traverse_packet)
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
 from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
@@ -45,10 +49,18 @@ from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
 
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for every option this port does not carry."""
-    if cfg.traversal not in ("pallas", "pallas_rows"):
+    if cfg.traversal not in ("pallas", "pallas_rows", "wave"):
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port carries the dense-BVH "
-            "engines (traversal='pallas' and 'pallas_rows')")
+            "engines (traversal='pallas' and 'pallas_rows') and the wave engine "
+            "(traversal='wave')")
+    if cfg.traversal == "wave" and cfg.dense not in ("mt", "woop"):
+        raise NotImplementedError(f"dense={cfg.dense!r}: the wave engine's leaf "
+                                  "test is 'mt' or 'woop'")
+    if cfg.traversal == "wave" and scene is not None and scene.bvh is None:
+        raise NotImplementedError(
+            "traversal='wave' on a scene without a classic BVH (SceneData.bvh "
+            "is None): build it with legacy_bvh=True")
     if cfg.leaf_precision not in ("bf16", "f32"):
         raise NotImplementedError(
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
@@ -93,6 +105,12 @@ def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
     if cfg.traversal == "pallas_rows":
         fn = trace_rows.sorted_rows_closest if sort else trace_rows.rows_closest_dense
         return fn(scene.dense, o, d, t_max)
+    if cfg.traversal == "wave":
+        tp = traverse_packet
+        if sort:
+            return tp.sorted_closest(tp.intersect_closest_wave, scene.bvh, o, d, t_max,
+                                     **_wave_kw(cfg))
+        return tp.intersect_closest_wave(scene.bvh, o, d, t_max, **_wave_kw(cfg))
     if _use_bf16(cfg, scene.dense):
         fn = trace_bf16.sorted_closest_bf16 if sort \
             else trace_bf16.intersect_closest_bf16
@@ -101,8 +119,19 @@ def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
     return fn(scene.dense, o, d, t_max)
 
 
+def _wave_kw(cfg: RenderConfig) -> dict:
+    return dict(tile=cfg.packet_tile, stack_depth=cfg.max_stack_depth,
+                leaf_size=cfg.leaf_size, dense=cfg.dense, shrink=cfg.wave_shrink)
+
+
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
     sort = sort and cfg.sort_rays
+    if cfg.traversal == "wave":
+        tp = traverse_packet
+        if sort:
+            return tp.sorted_any(tp.intersect_any_wave, scene.bvh, o, d, t_max,
+                                 **_wave_kw(cfg))
+        return tp.intersect_any_wave(scene.bvh, o, d, t_max, **_wave_kw(cfg))
     if cfg.traversal == "pallas_rows":
         fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
     elif _use_bf16(cfg, scene.dense):

@@ -4,7 +4,9 @@
 (``bench.py::build_bench_scene``), built by the port: 9 instanced 32x64 UV
 spheres plus a floor (36,866 world triangles), 4 point lights, 1
 directional and 1 spot light. ``flatten="auto"`` keeps it two-level (the
-flattened tables fail the fast-memory check), as the JAX package does.
+flattened tables fail the fast-memory check), as the JAX package does. Like
+``bench.py``, it builds no classic BVH unless asked (``legacy_bvh=True``:
+the wave engine's tree, 16 triangles per leaf).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, r
 
 
 def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
-                      device=DEFAULT_DEVICE):
+                      legacy_bvh: bool = False, device=DEFAULT_DEVICE):
     """Returns (scene_data, camera, depth) on ``device``."""
     device = resolve(device)
     sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=32, lon=64),
@@ -38,7 +40,7 @@ def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
                  for dx in (-2.2, 0.0, 2.2) for dz in (-2.2, 0.0, 2.2)]
     instances.append(Instance(1))
     scene, _meta, depth = build_scene_instanced(
-        [sphere, floor], instances, lights,
+        [sphere, floor], instances, lights, legacy_bvh=legacy_bvh,
         dense_leaf_target=dense_leaf_target, flatten=flatten, device=device)
     cam = Camera.make(pos=(0, 2.5, 7), target=(0, 0, 0), device=device)
     return scene, cam, depth

@@ -4,10 +4,13 @@ Models + instances -> ``SceneData`` on one device. ``build_scene`` bakes
 instance transforms into world space and builds one single-level dense BVH;
 ``build_scene_instanced`` builds a shared BLAS per model plus a TLAS over
 instances, or flattens under the same ``flatten="auto"`` policy as the JAX
-package, so both packages trace the same tables.
+package, so both packages trace the same tables. Both also build the
+classic 2-wide BVH over the world-baked triangles (``SceneData.bvh``, the
+wave engine's tree), unless ``build_scene_instanced`` is given
+``legacy_bvh=False``: then ``bvh`` is None, where the JAX package stores a
+1-triangle placeholder, and the wave engine refuses the scene.
 
-Not ported: the classic 2-wide BVH (``SceneData.bvh``) that only the XLA
-traversal engines read, and ``rebuild_scene`` (scene lifecycle, later work).
+Not ported: ``rebuild_scene`` (scene lifecycle, later work).
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from physically_based_ray_tracer_tpu_torch.bvh.builder import build_bvh, bvh_depth
 from physically_based_ray_tracer_tpu_torch.bvh.dense import (GROUP_ROWS,
                                                              NODE_F, DenseBVH,
                                                              TLASMeta,
                                                              build_dense,
                                                              build_dense_tlas)
+from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays
 from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.math import (
@@ -101,6 +106,7 @@ class SceneData:
     texel_pool: torch.Tensor       # (K,) texels as i64 (uint32 values)
     lights: LightSet
     sky: torch.Tensor              # (Hs, Ws, 3) f32; (1,1,3) zeros if absent
+    bvh: Optional[BVHArrays] = None  # classic BVH (wave engine); None if not built
 
     @property
     def n_prims(self) -> int:
@@ -110,7 +116,7 @@ class SceneData:
         kw = {}
         for f in dataclasses.fields(self):
             x = getattr(self, f.name)
-            kw[f.name] = x.to(device)
+            kw[f.name] = None if x is None else x.to(device)
         return SceneData(**kw)
 
 
@@ -163,7 +169,7 @@ def _texture_pool(models):
     return tex_record, texel_pool
 
 
-def _assemble(models, dense, baked, lights, sky, device):
+def _assemble(models, dense, baked, lights, sky, device, bvh=None):
     tri = baked["tri"]
     v0 = tri[:, 0]
     tex_record, texel_pool = _texture_pool(models)
@@ -183,7 +189,8 @@ def _assemble(models, dense, baked, lights, sky, device):
         mat_reflectance=[m.reflectance for m in models],
         mat_opacity=[m.opacity for m in models],
         tex_record=tex_record, texel_pool=texel_pool, sky=sky)
-    return _from_arrays(arrays, dense.to(device), lights.to(device), device)
+    return _from_arrays(arrays, dense.to(device), lights.to(device), device,
+                        None if bvh is None else bvh.to(device))
 
 
 _INT_FIELDS = {"prim_model": np.int32, "prim_inst": np.int32,
@@ -191,24 +198,25 @@ _INT_FIELDS = {"prim_model": np.int32, "prim_inst": np.int32,
 
 
 def _from_arrays(arrays: dict, dense: DenseBVH, lights: LightSet,
-                 device) -> SceneData:
+                 device, bvh: BVHArrays | None = None) -> SceneData:
     kw = {}
     for name, x in arrays.items():
         dtype = _INT_FIELDS.get(name, np.float32)
         kw[name] = torch.from_numpy(np.array(x, dtype=dtype)).to(device)
-    return SceneData(dense=dense, lights=lights, **kw)
+    return SceneData(dense=dense, lights=lights, bvh=bvh, **kw)
 
 
 def scene_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> SceneData:
     """The port's SceneData from the JAX package's SceneData fields.
 
     ``arrays`` maps each SceneData field name to ``np.asarray`` of the JAX
-    field, except ``dense`` and ``lights``, which map to dicts of their own
-    fields (DenseBVH: nodes16, groups, inst16, prim_base, world_lo,
-    world_hi, and groups_bf, glo, pids_c where present; LightSet: its twelve
-    arrays). ``groups_bf`` keeps its bf16 bits (``DenseBVH.from_numpy``).
-    The legacy ``bvh`` field is not read. Tests use this so that both
-    packages trace identical tables."""
+    field, except ``dense``, ``lights`` and ``bvh``, which map to dicts of
+    their own fields (DenseBVH: nodes16, groups, inst16, prim_base,
+    world_lo, world_hi, and groups_bf, glo, pids_c where present; LightSet:
+    its twelve arrays; BVHArrays: nodes_box, nodes_child, tris, prim_index,
+    tris_woop). ``groups_bf`` keeps its bf16 bits (``DenseBVH.from_numpy``).
+    Without a ``bvh`` entry the scene has no classic BVH. Tests use this so
+    that both packages trace identical tables."""
     device = resolve(device)
     d = arrays["dense"]
     dense = DenseBVH.from_numpy(d["nodes16"], d["groups"], d["inst16"],
@@ -217,23 +225,29 @@ def scene_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> SceneData:
                                 pids_c=d.get("pids_c"), device=device)
     lights = LightSet(**{k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
                          for k, v in arrays["lights"].items()})
+    bvh = arrays.get("bvh")
+    if bvh is not None:
+        bvh = BVHArrays.from_numpy(**bvh, device=device)
     rest = {k: v for k, v in arrays.items()
             if k in {f.name for f in dataclasses.fields(SceneData)}
-            and k not in ("dense", "lights")}
-    return _from_arrays(rest, dense, lights, device)
+            and k not in ("dense", "lights", "bvh")}
+    return _from_arrays(rest, dense, lights, device, bvh)
 
 
 def build_scene(models: list[MeshModel], instances: list[Instance],
                 lights: LightSet | None = None, sky: np.ndarray | None = None,
-                dense_leaf_target: int = 16, dense_shape: bool = True,
+                leaf_size: int = 16, dense_leaf_target: int = 16,
+                dense_shape: bool = True,
                 device=DEFAULT_DEVICE) -> tuple[SceneData, int]:
-    """Bake instances to world space, build the single-level dense BVH.
-    Returns (scene_data, depth)."""
+    """Bake instances to world space, build the classic BVH and the
+    single-level dense BVH. Returns (scene_data, depth of the classic BVH),
+    as the JAX package does."""
     device = resolve(device)
     baked = _bake_world(models, instances)
-    dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
-                               shape=dense_shape)
-    return _assemble(models, dense, baked, lights, sky, device), depth
+    bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
+    dense, _ = build_dense(baked["tri"], leaf_target=dense_leaf_target,
+                           shape=dense_shape)
+    return _assemble(models, dense, baked, lights, sky, device, bvh), bvh_depth(bvh)
 
 
 # Scene-adaptive layout policy, kept identical to the JAX package so both
@@ -257,18 +271,25 @@ def _dense_fits_fast_memory(dense: DenseBVH) -> bool:
 def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           lights: LightSet | None = None,
                           sky: np.ndarray | None = None,
-                          dense_leaf_target: int = 16,
+                          leaf_size: int = 16, dense_leaf_target: int = 16,
                           dense_shape: bool = True,
+                          legacy_bvh: bool = True,
                           flatten: bool | str = False,
                           device=DEFAULT_DEVICE,
                           ) -> tuple[SceneData, TLASMeta | None, int]:
     """Two-level build: shared BLAS per model + TLAS over instances.
 
+    ``legacy_bvh``: also build the classic BVH over the world-baked
+    triangles (``leaf_size`` per leaf; the wave engine's tree); False leaves
+    ``SceneData.bvh`` None.
+
     ``flatten``: False keeps the two-level structure; "auto" world-bakes
     small scenes into one single-level tree when the flattened tables pass
     the fast-memory check; True forces flattening.
 
-    Returns (scene_data, tlas_meta or None when flattened, depth)."""
+    Returns (scene_data, tlas_meta or None when flattened, depth): the
+    larger of the dense and the classic tree's depth, as in the JAX
+    package."""
     device = resolve(device)
     baked = _bake_world(models, instances)
     do_flatten = (flatten is True) or (
@@ -289,4 +310,8 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
         dense, meta, depth = build_dense_tlas(mesh_tris, inst_mesh, transforms,
                                               leaf_target=dense_leaf_target,
                                               shape=dense_shape)
-    return _assemble(models, dense, baked, lights, sky, device), meta, depth
+    bvh = None
+    if legacy_bvh:
+        bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
+        depth = max(bvh_depth(bvh), depth)
+    return _assemble(models, dense, baked, lights, sky, device, bvh), meta, depth

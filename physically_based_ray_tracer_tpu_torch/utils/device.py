@@ -1,7 +1,7 @@
 """The port's default device: the CUDA card.
 
 Every entry point that allocates (``Renderer``, the scene builders,
-``Camera.make``, ``LightSet.make``, ``DenseBVH.from_numpy``,
+``Camera.make``, ``LightSet.make``, ``DenseBVH.from_numpy``, ``BVHArrays.from_numpy``,
 ``FilmState.zeros``) takes ``device=DEFAULT_DEVICE`` and runs on the card
 unless the caller passes ``device="cpu"``. There is no fallback: asking for
 the card where there is none raises.

@@ -5,13 +5,15 @@
 
 Renders the benchmark frame (bench scene, 1280x720, 4 bounces, AA, one
 shadow ray) with the default bf16 engine, then with the exact f32 engine,
-then with the row-parallel exact engine (``traversal="pallas_rows"``): for
+then with the row-parallel exact engine (``traversal="pallas_rows"``), then
+with the wave engine (``traversal="wave"``, on the scene's classic BVH): for
 each, once to warm up, then once under ``torch.profiler``. Prints per engine
 the frame's wall time, the summed device time of all kernels and of the
 traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``, B3
-``traverse_rows_kernel``) with their launch counts, the device-busy share of
-the wall time and the kernel launch count, and the top 30 operators by
-device time.
+``traverse_rows_kernel``, B4 ``leaf_mt_kernel`` and the wave engine's
+``wave_scan_kernel``) with their launch counts, the waves the wave engine
+ran, the device-busy share of the wall time and the kernel launch count,
+and the top 30 operators by device time.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ import time
 def _profile(label, scene, cam, cfg, dev, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
 
     r = Renderer(scene, cam, cfg, device=dev)
     r.tick(0)
     torch.cuda.synchronize()
+    traverse_packet.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r.tick(0)
@@ -46,11 +50,16 @@ def _profile(label, scene, cam, cfg, dev, card):
     b2 = [t for n, t in kernels if "traverse_bf16_kernel" in n]
     b1 = [t for n, t in kernels if "traverse_kernel" in n and "bf16" not in n]
     b3 = [t for n, t in kernels if "traverse_rows_kernel" in n]
+    b4 = [t for n, t in kernels if "leaf_mt_kernel" in n]
+    scan = [t for n, t in kernels if "wave_scan_kernel" in n]
     print(f"card: {card}")
     print(f"frame 1280x720 {label}: wall {wall_ms:.2f} ms, device "
           f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), B2 {sum(b2) / 1e3:.2f} ms "
           f"({len(b2)} launches), B1 {sum(b1) / 1e3:.2f} ms ({len(b1)} launches), "
           f"B3 {sum(b3) / 1e3:.2f} ms ({len(b3)} launches), "
+          f"B4 {sum(b4) / 1e3:.2f} ms ({len(b4)} launches), "
+          f"scan {sum(scan) / 1e3:.2f} ms ({len(scan)} launches), "
+          f"waves {dict(traverse_packet.WAVES)}, "
           f"device busy {100 * dev_ms / wall_ms:.1f}%")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
@@ -70,11 +79,12 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    scene, cam, _ = build_bench_scene(device=dev)
+    scene, cam, _ = build_bench_scene(legacy_bvh=True, device=dev)
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
     for label, c in (("bf16", cfg), ("f32", cfg.replace(leaf_precision="f32")),
-                     ("pallas_rows", cfg.replace(traversal="pallas_rows"))):
+                     ("pallas_rows", cfg.replace(traversal="pallas_rows")),
+                     ("wave", cfg.replace(traversal="wave"))):
         _profile(label, scene, cam, c, dev, card)
     return 0
 

@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
@@ -21,6 +22,7 @@ import torch  # noqa: E402
 from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
@@ -84,7 +86,7 @@ def test_config_mirrors_jax():
 
 @pytest.mark.parametrize("kw,name", [
     (dict(leaf_precision="fp16"), "leaf_precision"),
-    (dict(traversal="wave"), "traversal"),
+    (dict(traversal="packet"), "traversal"),
     (dict(traversal="lane"), "traversal"),
     (dict(rendering_mode=RenderMode.BASECOLOR), "rendering_mode"),
     (dict(rendering_mode=RenderMode.DEPTH), "rendering_mode"),
@@ -161,12 +163,14 @@ def _entry_points():
             d["nodes16"], d["groups"], d["inst16"], d["prim_base"], d["world_lo"],
             d["world_hi"])),
         "FilmState.zeros": (FilmState.zeros, lambda: FilmState.zeros(16)),
+        "BVHArrays.from_numpy": (BVHArrays.from_numpy, lambda: BVHArrays.from_numpy(
+            np.zeros((1, 12)), np.zeros((1, 2)), np.zeros((16, 9)), np.zeros(16))),
     }
 
 
 ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scene",
                 "build_scene_instanced", "Camera.make", "LightSet.make",
-                "DenseBVH.from_numpy", "FilmState.zeros"]
+                "DenseBVH.from_numpy", "FilmState.zeros", "BVHArrays.from_numpy"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

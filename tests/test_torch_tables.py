@@ -156,7 +156,8 @@ def test_instanced_auto_flatten_identical():
     tl = scene_from_numpy(scene_arrays(j), device="cpu").lights
     t, tmeta, tdepth = build_scene_instanced(port_models(models),
                                              port_instances(instances), tl,
-                                             flatten="auto", device="cpu")
+                                             legacy_bvh=False, flatten="auto",
+                                             device="cpu")
     _same_scene(t, j)
     assert (tmeta is None) == (jmeta.tlas_meta is None)
     assert tdepth == jdepth

@@ -41,14 +41,16 @@ def port_config(jcfg):
     return getattr(tconfig, type(jcfg).__name__)(**kw)
 
 
-def scene_arrays(jscene) -> dict:
-    """np.asarray of every field of a JAX SceneData (scene_from_numpy input)."""
+def scene_arrays(jscene, bvh: bool = False) -> dict:
+    """np.asarray of every field of a JAX SceneData (scene_from_numpy input);
+    the classic BVH only with ``bvh=True`` (a scene built with
+    ``legacy_bvh=False`` holds a 1-triangle placeholder there)."""
     out = {}
     for name in jscene._fields:
         x = getattr(jscene, name)
-        if name == "bvh":
+        if name == "bvh" and not bvh:
             continue
-        if name in ("dense", "lights"):
+        if name in ("dense", "lights", "bvh"):
             out[name] = {k: np.asarray(getattr(x, k)) for k in x._fields
                          if getattr(x, k) is not None}
         else:
@@ -56,8 +58,8 @@ def scene_arrays(jscene) -> dict:
     return out
 
 
-def port_scene(jscene):
-    return scene_from_numpy(scene_arrays(jscene), device="cpu")
+def port_scene(jscene, bvh: bool = False):
+    return scene_from_numpy(scene_arrays(jscene, bvh), device="cpu")
 
 
 def port_camera(jcam):
