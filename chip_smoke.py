@@ -15,7 +15,13 @@ port-only kernel), with one ``nvcc`` each, started together (into
 ``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
-   the kernel build times and ptxas register / spill reports;
+   the kernel build times and ptxas logs, and again, per kernel function of
+   B1 and B2, ptxas's lines on its registers, stack frame (local memory) and
+   spill bytes (demangled by ``c++filt`` where the host has it);
+1b. the exhaustive check of B2's packed bf16x2 operations
+   (``trace_bf16.packed_op_mismatches``): the sweep's mul, add, sub, min, max
+   and abs helpers over all 2^32 bf16 operand pairs against f32 arithmetic
+   rounded to bf16, gated at 0 mismatches for every operation;
 2. B1 and B3 vs their plain version (one function, computed once per table
    and set): on the benchmark scene (two-level, as flatten="auto" builds it,
    and flattened to one level) and three 131,072-ray sets (primary rays of
@@ -43,8 +49,10 @@ port-only kernel), with one ``nvcc`` each, started together (into
    same prim on > 97% of rays that both hit on the primary rays, the ray
    class the contract was written for (on the bounce and shadow sets the
    JAX engine itself gives 1.5% and 0.4% found mismatch: printed, not gated);
-5. times: median of CUDA-event runs, 10 of each kernel (after a warm-up)
-   and 2 of each plain version, on the co-sorted 131,072-ray sets: B1 and B3 side by side on
+5. times: median of CUDA-event runs, 10 of each kernel (after a warm-up,
+   each behind a ~1 ms device sleep so that the wrapper's host time is not
+   counted) and 2 of each plain version, on the co-sorted 131,072-ray sets:
+   B1 and B3 side by side on
    both tables, B2 on the two-level one; plain versions on the two-level
    table (B3's, the same function as B1's, on the two sets the kernels line
    reports);
@@ -54,9 +62,13 @@ port-only kernel), with one ``nvcc`` each, started together (into
    operations per unit (UNIT_OPS) and the bytes each launch must move, they
    give each kernel's bound (the larger of the operations over the card's
    peaks, f32 at 67 TFLOP/s and bf16 at 133.8 TFLOP/s outside the tensor
-   cores, and bytes / 3.35 TB/s). B3's bound is the work of its function,
-   B1's count on the same rays; the work of its union walk is reported
-   beside it (``union_bound_ms``);
+   cores, and bytes / 3.35 TB/s; the bytes count the tables each kernel
+   reads). B3's bound is the work of its function, B1's count on the same
+   rays; the work of its union walk is reported beside it
+   (``union_bound_ms``). B1's and B2's counted node steps, triangle tests or
+   band candidates and leaf visits must equal those of the walk that took
+   one step per iteration (``STEP_WALK_WORK``): batching leaf visits keeps
+   every ray's nodes and leaves;
 6. the main path with the default configuration (bf16 engine): ``Renderer``
    on the benchmark frame (1280x720, 4 bounces, AA, NEE with one shadow ray):
    one warm-up and 3 timed ``tick``s with the counts set to 0 just before:
@@ -102,6 +114,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -139,6 +152,27 @@ PEAK_BYTES = 3.35e12
 RAY_IN_BYTES = 28
 OUT_BYTES = {("f32", "closest"): 20, ("f32", "any"): 1, ("rows", "closest"): 20,
              ("rows", "any"): 1, ("bf16", "closest"): 12, ("bf16", "any"): 2}
+# B1's and B2's counted work on the three sets, two-level table, as the walk
+# that took one node step or leaf visit per iteration counted it (the
+# counting instantiations of the kernels before leaf visits were batched, on
+# the same seeded rays): (engine, set, mode) -> (node steps, triangle tests
+# or band candidates, leaf visits)
+STEP_WALK_WORK = {
+    ("f32", "primary", "closest"): (1157076, 1285320, 123442),
+    ("f32", "bounce", "closest"): (3364702, 7041788, 481553),
+    ("f32", "shadow", "closest"): (2354557, 4322120, 294822),
+    ("f32", "primary", "any"): (1022595, 853349, 114310),
+    ("f32", "bounce", "any"): (3141114, 5513820, 448237),
+    ("f32", "shadow", "any"): (2279343, 3584765, 279099),
+    ("bf16", "primary", "closest"): (1157875, 1290982, 123800),
+    ("bf16", "bounce", "closest"): (3367470, 7048204, 482071),
+    ("bf16", "shadow", "closest"): (2351720, 4311352, 294069),
+    ("bf16", "primary", "any"): (336506, 269591, 88335),
+    ("bf16", "bounce", "any"): (1910862, 3164995, 299472),
+    ("bf16", "shadow", "any"): (2271740, 3661327, 276379)}
+# the lines of nvcc's ptxas log that name a kernel function and give its
+# registers, stack frame and spills
+PTXAS_KEYS = ("Compiling entry function", "stack frame", "Used")
 BF16_CHUNK = 1536
 F32_CHUNK = 4096
 WAVE_RAYS = 122880      # one AA chunk of the bench frame: 960 tiles of 128
@@ -412,9 +446,11 @@ def _bound(eng, mode, dbvh, n_rays, ops):
     """(bound ms, "operations" or "bytes", bytes) of one launch of engine
     ``eng``: the larger of the operations ``ops`` (by type) over PEAK_OPS and
     the bytes it must move (each ray input read once, each output written
-    once, each table read once) over PEAK_BYTES."""
-    tables = ((dbvh.nodes16, dbvh.groups_bf, dbvh.glo, dbvh.inst16) if eng == "bf16"
-              else (dbvh.nodes16, dbvh.groups, dbvh.inst16))
+    once, each table the kernel reads read once: B1 its leaf records, B2
+    its band pairs and group boxes, B3 the groups table) over PEAK_BYTES."""
+    leaf = {"f32": (dbvh.leaf_rec,), "bf16": (dbvh.groups_bf2, dbvh.glo),
+            "rows": (dbvh.groups,)}[eng]
+    tables = (dbvh.nodes16, *leaf, dbvh.inst16)
     nbytes = (n_rays * (RAY_IN_BYTES + OUT_BYTES[(eng, mode)])
               + sum(t.numel() * t.element_size() for t in tables))
     t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
@@ -681,6 +717,25 @@ def main() -> int:
                   flush=True)
         _check(_build.load("traverse_rows").pbrt_trace_rows_stack_cap()
                == trace_rows.STACK_CAP, "B3's stack cap differs from trace_rows.STACK_CAP")
+        # B1's and B2's registers, stack frame (local memory) and spills per
+        # kernel function: ptxas's own lines, demangled where c++filt exists
+        for name in ("traverse_f32", "traverse_bf16"):
+            lines = "\n".join(ln for ln in _build.BUILD_INFO[name]["log"].splitlines()
+                              if any(k in ln for k in PTXAS_KEYS))
+            if shutil.which("c++filt"):
+                lines = subprocess.run(["c++filt"], input=lines, capture_output=True,
+                                       text=True, check=True, timeout=60).stdout
+            print(f"ptxas {name}:\n{lines}", flush=True)
+
+    # 1b. the packed bf16x2 operations of B2's sweep, over all operand pairs
+    with _Phase("bf16x2 exhaustive check"):
+        t0 = time.perf_counter()
+        mism = trace_bf16.packed_op_mismatches(dev)
+        torch.cuda.synchronize()
+        print(f"bf16x2 ops vs f32-then-round over all 2^32 operand pairs: mismatches "
+              f"{json.dumps(mism)} ({time.perf_counter() - t0:.2f} s) [{card}]", flush=True)
+        _check(set(mism) == set(trace_bf16.PACKED_OPS) and not any(mism.values()),
+               f"B2's packed bf16x2 operations differ from the f32 emulation: {mism}")
 
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
@@ -758,7 +813,7 @@ def main() -> int:
                                          dbvh, o_s, d_s, tm_s, closest)))
                     k_ms = {}
                     for eng, kfn, pfn in runs:
-                        k_ms[eng] = _time_ms(kfn)
+                        k_ms[eng] = _time_ms(kfn, ahead=True)
                         line = (f"time {eng:4s} {mode:7s} {sname:7s} {N_RAYS} rays, "
                                 f"{tname}: kernel {k_ms[eng]:.4f} ms")
                         # B3's plain version is B1's function: timed on the
@@ -800,6 +855,13 @@ def main() -> int:
                         union[(sname, mode)] = u_ms
                         line += (f"; union walk {json.dumps(w)} -> {u_ms:.5f} ms, "
                                  f"{w['ops']['f32'] / need['ops']['f32']:.2f}x B1's ops")
+                    ref = STEP_WALK_WORK.get((eng, sname, mode))
+                    if ref is not None:
+                        got = (w["node_steps"], w["tri_tests"], w["leaf_visits"])
+                        line += f"; one-step walk's work {list(ref)}"
+                        _check(got == ref, f"{eng} {mode} {sname}: counted work {got} "
+                               f"differs from the one-step walk's {ref} (the walk must "
+                               f"not change a ray's work)")
                     print(f"{line} [{card}]", flush=True)
         _check(all(trunc == 0 for trunc in (trace.truncated_rays(dev),
                                              trace_rows.truncated_rays(dev),

@@ -35,6 +35,19 @@ Layouts (shared with the traversal kernels, ``csrc/traverse_f32.cu`` and
     with -1 (C = the largest period). f32 -> bf16 rounds to nearest even,
     as ``ml_dtypes`` does for the JAX package.
 
+Two derived tables, the port's own, are built from those once per
+``DenseBVH`` on its device (``__post_init__``), for the kernels' loads:
+  * ``leaf_rec`` (G*C, 12) f32, kernel B1's per-triangle leaf records: record
+    g*C + j is slot j of group g as three float4, [v0.xyz, prim],
+    [e1.xyz, 0], [e2.xyz, 0], for j < c (the group's period, as
+    ``_pack_groups_bf`` finds it: the c of the group's node code); records
+    c..C-1 are zero with prim -1 (C = the largest period). Built from
+    ``groups``, so f32-only tables have it too.
+  * ``groups_bf2`` (G, 128, 32) bf16, kernel B2's band pairs: ``groups_bf``
+    with each column's 32 rows contiguous, a permutation of its bytes, so
+    that rows 2i and 2i+1 (the two bands of component i) form one 32-bit
+    bf16x2 word of the column's 64-byte record.
+
 ``refresh_tlas`` and the native SBVH core are not ported: neither is on the
 main path.
 """
@@ -109,6 +122,15 @@ class DenseBVH:
     groups_bf: torch.Tensor | None = None   # (G*32, 128) bf16
     glo: torch.Tensor | None = None         # (G*8,) f32
     pids_c: torch.Tensor | None = None      # (G*C,) f32
+    # derived tables (module docstring), built by __post_init__ where absent
+    leaf_rec: torch.Tensor | None = None    # (G*C, 12) f32
+    groups_bf2: torch.Tensor | None = None  # (G, 128, 32) bf16
+
+    def __post_init__(self):
+        if self.leaf_rec is None:
+            object.__setattr__(self, "leaf_rec", _leaf_records(self.groups))
+        if self.groups_bf2 is None and self.groups_bf is not None:
+            object.__setattr__(self, "groups_bf2", _band_pairs(self.groups_bf))
 
     @staticmethod
     def from_numpy(nodes16, groups, inst16, prim_base, world_lo, world_hi,
@@ -154,6 +176,40 @@ class DenseBVH:
     @property
     def two_level(self) -> bool:
         return self.inst16.shape[0] >= INST_F
+
+
+def _group_periods(pid_rows: torch.Tensor) -> torch.Tensor:
+    """Replication period c of each group's prim-id row (G, 128), as
+    ``_pack_groups_bf`` finds it: the smallest c | 128 the row repeats with."""
+    c = torch.full((pid_rows.shape[0],), LEAF_W, dtype=torch.int64,
+                   device=pid_rows.device)
+    for p in (64, 32, 16, 8, 4, 2, 1):
+        c[(pid_rows == pid_rows[:, :p].repeat(1, LEAF_W // p)).all(dim=1)] = p
+    return c
+
+
+def _leaf_records(groups: torch.Tensor) -> torch.Tensor:
+    """Kernel B1's per-triangle leaf records (module docstring), (G*C, 12)
+    f32, from the f32 groups table, on its device."""
+    G = groups.shape[0] // GROUP_ROWS
+    rows = groups.reshape(G, GROUP_ROWS, LEAF_W)
+    c = _group_periods(rows[:, 9, :])
+    C = int(c.max()) if G else 1
+    slots = rows[:, :10, :C].transpose(1, 2)               # (G, C, 10)
+    rec = torch.zeros((G, C, 12), dtype=torch.float32, device=groups.device)
+    rec[:, :, 3] = -1.0
+    live = torch.arange(C, device=groups.device)[None, :] < c[:, None]
+    for dst, src in ((slice(0, 3), slice(0, 3)), (slice(3, 4), slice(9, 10)),
+                     (slice(4, 7), slice(3, 6)), (slice(8, 11), slice(6, 9))):
+        rec[:, :, dst] = torch.where(live[:, :, None], slots[:, :, src], rec[:, :, dst])
+    return rec.reshape(G * C, 12)
+
+
+def _band_pairs(groups_bf: torch.Tensor) -> torch.Tensor:
+    """Kernel B2's band pairs (module docstring): ``groups_bf`` (G*32, 128)
+    as (G, 128, 32), each column's rows contiguous."""
+    G = groups_bf.shape[0] // BF_ROWS
+    return groups_bf.reshape(G, BF_ROWS, LEAF_W).transpose(1, 2).contiguous()
 
 
 class TLASMeta(NamedTuple):

@@ -95,7 +95,7 @@ leaf_mt_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
       const float* s = tri + (l - l0) * K;
       for (int k = 0; k < count; ++k) {
         float tt, uu, vv;
-        const bool ok = mt_f32(r, s + k, tt, uu, vv);
+        const bool ok = mt_f32(r, tri_rows(s + k), tt, uu, vv);
         if (CLOSEST) {
           if (ok && tt < fminf(tb, tm)) {
             tb = tt; ub = uu; vb = vv; pb = first + k;

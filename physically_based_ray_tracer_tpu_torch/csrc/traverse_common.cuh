@@ -16,6 +16,22 @@
 // silently. Compiled without fast math and with --fmad=false, so that the f32
 // arithmetic matches the plain PyTorch versions bit for bit.
 //
+// The walk is the while-while loop of Aila and Laine ("Understanding the
+// Efficiency of Ray Traversal on GPUs", HPG 2009), non-speculative: a lane
+// steps through nodes (instance enter and restore included) until it holds a
+// triangle leaf or is done, the warp stays in that node loop while any lane
+// still needs a node step, and then every lane that holds a leaf sweeps it
+// together. A leaf sweep costs several node steps (c triangle tests in B1, c
+// band candidates in B2), so batching them keeps the warp's lanes on the same
+// kind of work instead of alternating node and leaf lanes. A lane that holds
+// a leaf waits for it, so each ray visits the same nodes and leaves in the
+// same order, under the same clip, as a lane walking alone: the outputs and
+// the counted work of every ray are those of the one-step-per-iteration walk
+// it replaces. Measured on the H100 and not kept (PERF.md): the first 16
+// stack entries in shared memory, and persistent warps that take rays from a
+// global counter; both were slower on co-sorted rays, whose warps finish
+// together and whose local-memory stack stays in L1.
+//
 // A leaf visitor provides
 //   float clip() const;                      the slab clip of the next node test
 //   bool visit(int gv, int inst, const Ray&); sweep triangle leaf gv = group*8 +
@@ -42,6 +58,7 @@ constexpr int ABSENT = -(1 << 30);
 constexpr int DONE = 0x7FFFFFFF;
 constexpr int STACK_CAP = 64;
 constexpr int BLOCK = 128;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 // work counters of the counting instantiations: node steps, triangle tests,
 // leaf visits (summed over rays; B3: over warps, times 32 lanes)
 constexpr int N_COUNTERS = 3;
@@ -89,16 +106,45 @@ __device__ __forceinline__ bool slab(const Ray& r, float lx, float ly, float lz,
   return (tn <= tf) && (tf > 0.0f) && (tn < t_clip) && (t_clip > 0.0f);
 }
 
-// Möller-Trumbore of ray r against the triangle in slot s of a leaf group
-// (rows 0..8 of the group at stride LEAF_W: v0, e1, e2), in the reference's
-// operation order. Returns the accept: |det| > 1e-9, u, v >= 0, u + v <= 1,
-// t > 0. Every kernel that tests f32 triangles uses this one function, so
-// their t values are bit-equal for the same ray and triangle.
-__device__ __forceinline__ bool mt_f32(const Ray& r, const float* __restrict__ s,
-                                       float& tt, float& uu, float& vv) {
-  const float v0x = s[0 * LEAF_W], v0y = s[1 * LEAF_W], v0z = s[2 * LEAF_W];
-  const float e1x = s[3 * LEAF_W], e1y = s[4 * LEAF_W], e1z = s[5 * LEAF_W];
-  const float e2x = s[6 * LEAF_W], e2y = s[7 * LEAF_W], e2z = s[8 * LEAF_W];
+// the nine values of one f32 triangle: v0, e1 = v1 - v0, e2 = v2 - v0
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+// the triangle in slot s of a leaf group or a staged block: rows 0..8 at
+// stride LEAF_W (B3 reads the groups table, B4 its shared-memory block)
+__device__ __forceinline__ Tri tri_rows(const float* __restrict__ s) {
+  return Tri{s[0 * LEAF_W], s[1 * LEAF_W], s[2 * LEAF_W], s[3 * LEAF_W], s[4 * LEAF_W],
+             s[5 * LEAF_W], s[6 * LEAF_W], s[7 * LEAF_W], s[8 * LEAF_W]};
+}
+
+// Asks L1 for the 128-byte lines of [p, p + bytes), all at once: a loop that
+// then reads them one record after another waits for one memory latency
+// instead of one each time it crosses into a new sector.
+__device__ __forceinline__ void prefetch_l1(const void* p, int bytes) {
+  const uintptr_t end = reinterpret_cast<uintptr_t>(p) + bytes;
+  for (uintptr_t a = reinterpret_cast<uintptr_t>(p) & ~uintptr_t(127); a < end; a += 128)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
+}
+
+// a per-triangle leaf record of DenseBVH.leaf_rec (B1): three float4,
+// [v0.xyz, prim], [e1.xyz, 0], [e2.xyz, 0], read as three 16-byte loads
+__device__ __forceinline__ Tri tri_record(const float4* __restrict__ rec, float& prim) {
+  const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
+  prim = a.w;
+  return Tri{a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
+}
+
+// Möller-Trumbore of ray r against triangle s, in the reference's operation
+// order. Returns the accept: |det| > 1e-9, u, v >= 0, u + v <= 1, t > 0.
+// Every kernel that tests f32 triangles (B1, B3, B4) uses this one function,
+// whichever loader gave it the triangle, so their t values are bit-equal for
+// the same ray and triangle.
+__device__ __forceinline__ bool mt_f32(const Ray& r, const Tri& s, float& tt, float& uu,
+                                       float& vv) {
+  const float v0x = s.v0x, v0y = s.v0y, v0z = s.v0z;
+  const float e1x = s.e1x, e1y = s.e1y, e1z = s.e1z;
+  const float e2x = s.e2x, e2y = s.e2y, e2z = s.e2z;
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
@@ -127,9 +173,13 @@ __device__ __forceinline__ Ray enter_instance(const float* __restrict__ m, const
 }
 
 // Walks the tables for one ray; returns true if the ray was truncated (step
-// bound or stack cap). ORDERED: descend into the nearer child first (by the
-// ray's own slab entry), else child 0 first. A ray with tmax <= 0 passes no
-// slab test and accepts no triangle, so it does not walk at all.
+// bound or stack cap). Every lane of a full warp calls it together (the
+// node-loop votes name all 32 lanes): a lane without a ray passes tmax = 0.
+// ORDERED: descend into the nearer child first (by the ray's own slab entry),
+// else child 0 first. A ray with tmax <= 0 passes no slab test and accepts no
+// triangle, so it does not walk at all. A node step, an instance enter or
+// restore and a leaf visit each count one step against max_steps, checked
+// before the step, as in the reference.
 template <bool ORDERED, class Leaf>
 __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
                                      const float* __restrict__ inst16, int two_level,
@@ -138,55 +188,85 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
   Ray r = world;  // world space, or the entered instance's object space
   int stack[STACK_CAP];
   int sp = 0, cur = 0, inst = -1, steps = 0;
-  while (tmax > 0.0f) {
-    if (steps >= max_steps) return true;
-    ++steps;
-    int nxt = DONE;
-    if (cur >= 0) {
-      leaf.on_node();
-      const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
-      const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
-      const float t_clip = leaf.clip();
-      const int c0 = (int)e.x, c1 = (int)e.y;
-      float tn0, tn1;
-      const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, t_clip, &tn0) && c0 != ABSENT;
-      const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, t_clip, &tn1) && c1 != ABSENT;
-      if (h0 && h1) {
-        const bool swap = ORDERED && tn1 < tn0;
-        if (sp >= STACK_CAP) return true;
-        stack[sp++] = swap ? c0 : c1;
-        nxt = swap ? c1 : c0;
-      } else if (h0) {
-        nxt = c0;
-      } else if (h1) {
-        nxt = c1;
+  bool live = tmax > 0.0f, cut = false;
+  while (__any_sync(FULL_MASK, live)) {
+    // node loop: step until this lane holds a triangle leaf (cur) or is done
+    bool at_leaf = false;
+    while (__any_sync(FULL_MASK, live && !at_leaf)) {
+      if (!live || at_leaf) continue;
+      if (steps >= max_steps) {
+        cut = true;
+        live = false;
+        continue;
       }
-    } else {
-      const int v = -(cur + 1);
-      if (two_level && (v & 1)) {
+      int nxt = DONE;
+      if (cur >= 0) {
+        ++steps;
+        leaf.on_node();
+        const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
+        const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
+        const float t_clip = leaf.clip();
+        const int c0 = (int)e.x, c1 = (int)e.y;
+        float tn0, tn1;
+        const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, t_clip, &tn0) && c0 != ABSENT;
+        const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, t_clip, &tn1) && c1 != ABSENT;
+        if (h0 && h1) {
+          const bool swap = ORDERED && tn1 < tn0;
+          if (sp >= STACK_CAP) {
+            cut = true;
+            live = false;
+            continue;
+          }
+          stack[sp++] = swap ? c0 : c1;
+          nxt = swap ? c1 : c0;
+        } else if (h0) {
+          nxt = c0;
+        } else if (h1) {
+          nxt = c1;
+        }
+      } else {
+        const int v = -(cur + 1);
+        if (!(two_level && (v & 1))) {
+          at_leaf = true;  // a triangle leaf: swept below, with the warp
+          continue;
+        }
+        ++steps;
         const int iid = v >> 1;
         if (iid == RESTORE_ID) {
           r = world;
           inst = -1;
         } else {
-          if (sp >= STACK_CAP) return true;
+          if (sp >= STACK_CAP) {
+            cut = true;
+            live = false;
+            continue;
+          }
           stack[sp++] = RESTORE_CODE;
           const float* m = inst16 + (size_t)iid * INST_F;
           r = enter_instance(m, world);
           inst = iid;
           nxt = (int)m[12];
         }
-      } else if (leaf.visit(v >> 1, inst, r)) {
-        return false;
       }
+      if (nxt == DONE) {
+        if (sp == 0) {
+          live = false;
+          continue;
+        }
+        nxt = stack[--sp];
+      }
+      cur = nxt;
     }
-    if (nxt == DONE) {
-      if (sp == 0) break;
-      nxt = stack[--sp];
+    // leaf phase: every lane that holds a leaf sweeps it, together
+    if (at_leaf) {
+      ++steps;
+      if (leaf.visit((-(cur + 1)) >> 1, inst, r) || sp == 0)
+        live = false;
+      else
+        cur = stack[--sp];
     }
-    cur = nxt;
   }
-  return false;
+  return cut;
 }
 
 inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }

@@ -194,7 +194,7 @@ traverse_rows_kernel(const float* __restrict__ nodes, const float* __restrict__ 
         }
         for (int j = 0; j < count; ++j) {
           float tt, uu, vv;
-          const bool ok = mt_f32(r, g + j, tt, uu, vv);
+          const bool ok = mt_f32(r, tri_rows(g + j), tt, uu, vv);
           if (CLOSEST) {
             if (ok && tt < t_best) {
               t_best = tt;

@@ -40,10 +40,11 @@ _SIGNATURES = {
     "traverse_f32": {
         "pbrt_trace_stack_cap": ([], _i),
         "pbrt_trace_error_string": ([_i], ctypes.c_char_p),
-        "pbrt_trace_closest_f32": ([_p, _p, _p, _i, _p, _p, _p, _i, _i,
+        "pbrt_trace_closest_f32": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i,
                                     _p, _p, _p, _p, _p, _p, _p], _i),
-        "pbrt_trace_any_f32": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p], _i),
-        "pbrt_trace_count_f32": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
+        "pbrt_trace_any_f32": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i,
+                                _p, _p, _p], _i),
+        "pbrt_trace_count_f32": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i, _i,
                                   _p, _p, _p, _p, _p, _p, _p, _p, _p], _i),
     },
     "traverse_bf16": {
@@ -55,6 +56,7 @@ _SIGNATURES = {
                                  _p, _p, _p, _p], _i),
         "pbrt_trace_count_bf16": ([_p, _p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
                                    _p, _p, _p, _p, _p, _p, _p, _p], _i),
+        "pbrt_bf16x2_check": ([_p, _p], _i),
     },
     "traverse_rows": {
         "pbrt_trace_rows_stack_cap": ([], _i),

@@ -74,7 +74,7 @@ def _check_rays(dbvh: DenseBVH, o, d, t_max):
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, want {shape}")
-    for name in ("nodes16", "groups", "inst16"):
+    for name in ("nodes16", "groups", "inst16", "leaf_rec"):
         x = getattr(dbvh, name)
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"dbvh.{name} must be contiguous float32 on {dev}")
@@ -84,13 +84,16 @@ def launch_args(dbvh: DenseBVH, o, d, t_max, stack_cap: int, counts: dict):
     """What every traversal kernel launch needs, checked: contiguous rays,
     the device's truncation counter (created in ``counts`` on first use)
     and the current stream. Refuses a table whose stack need exceeds the
-    kernel's ``stack_cap`` or whose node table is not 16-byte aligned (the
-    kernels load nodes as float4)."""
+    kernel's ``stack_cap`` or whose node table or leaf tables are not 16-byte
+    aligned (the kernels load nodes, B1's leaf records and B2's band pairs
+    as 16-byte vectors)."""
     if dbvh.stack_need > stack_cap:
         raise ValueError(f"BVH needs a traversal stack of {dbvh.stack_need} "
                          f"entries; the kernel holds {stack_cap}")
-    if dbvh.nodes16.data_ptr() % 16:
-        raise ValueError("dbvh.nodes16 must be 16-byte aligned")
+    for name in ("nodes16", "leaf_rec", "groups_bf2"):
+        x = getattr(dbvh, name)
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"dbvh.{name} must be 16-byte aligned")
     dev = o.device
     trunc = counts.get(dev)
     if trunc is None:
@@ -124,10 +127,15 @@ def _lead(dbvh: DenseBVH, lib, o, d, t_max):
     steps), the truncation counter and the stream."""
     o, d, t_max, trunc, stream = launch_args(dbvh, o, d, t_max,
                                              lib.pbrt_trace_stack_cap(), _TRUNCATED)
-    lead = (dbvh.nodes16.data_ptr(), dbvh.groups.data_ptr(), dbvh.inst16.data_ptr(),
-            int(dbvh.two_level), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-            o.shape[0], max_steps(dbvh))
+    lead = (dbvh.nodes16.data_ptr(), dbvh.leaf_rec.data_ptr(), record_stride(dbvh),
+            dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), o.shape[0], max_steps(dbvh))
     return lead, trunc, stream
+
+
+def record_stride(dbvh: DenseBVH) -> int:
+    """Leaf records per group in ``dbvh.leaf_rec`` (C, the largest period)."""
+    return dbvh.leaf_rec.shape[0] // dbvh.n_groups
 
 
 def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:

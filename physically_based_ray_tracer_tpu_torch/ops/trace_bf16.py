@@ -94,7 +94,8 @@ def has_bf16_tables(dbvh: DenseBVH) -> bool:
 def _check_tables(dbvh: DenseBVH, dev) -> None:
     if not has_bf16_tables(dbvh):
         raise ValueError("DenseBVH carries no bf16 tables (groups_bf, glo)")
-    for name, dtype in (("groups_bf", torch.bfloat16), ("glo", torch.float32)):
+    for name, dtype in (("groups_bf", torch.bfloat16), ("groups_bf2", torch.bfloat16),
+                        ("glo", torch.float32)):
         x = getattr(dbvh, name)
         if x.device != dev or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"dbvh.{name} must be contiguous {dtype} on {dev}")
@@ -105,7 +106,7 @@ def _lead(dbvh: DenseBVH, lib, o, d, t_max):
     steps), the truncation counter and the stream."""
     o, d, t_max, trunc, stream = trace.launch_args(
         dbvh, o, d, t_max, lib.pbrt_trace_bf16_stack_cap(), _TRUNCATED)
-    lead = (dbvh.nodes16.data_ptr(), dbvh.groups_bf.data_ptr(), dbvh.glo.data_ptr(),
+    lead = (dbvh.nodes16.data_ptr(), dbvh.groups_bf2.data_ptr(), dbvh.glo.data_ptr(),
             dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(), d.data_ptr(),
             t_max.data_ptr(), o.shape[0], trace.max_steps(dbvh))
     return lead, trunc, stream
@@ -153,6 +154,32 @@ def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:
                               lib.pbrt_trace_bf16_error_string, (*lead, int(closest)),
                               (t, gk, inst, cert, torch.empty_like(cert)), trunc,
                               stream, UNIT_OPS[closest])
+
+
+# the packed operations of B2's sweep, in the order pbrt_bf16x2_check counts
+# their mismatches
+PACKED_OPS = ("mul", "add", "sub", "min", "max", "abs")
+
+
+def packed_op_mismatches(device) -> dict:
+    """Kernel B2's exhaustive check on a CUDA ``device``: the sweep's packed
+    bf16x2 helpers over all 2^32 pairs of bf16 operands (abs: every
+    operand), each result against f32 arithmetic rounded to bf16 (all NaNs
+    one class). Returns {operation: mismatches}; 0 everywhere is what lets
+    the packed sweep equal the plain version bit for bit."""
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the bf16x2 check runs on a CUDA device, not {device}")
+    lib = _build.load("traverse_bf16")
+    counts = torch.zeros((len(PACKED_OPS),), dtype=torch.int64, device=device)
+    err = lib.pbrt_bf16x2_check(counts.data_ptr(),
+                                torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("bf16x2 check launch failed: "
+                           + lib.pbrt_trace_bf16_error_string(err).decode())
+    return dict(zip(PACKED_OPS, counts.tolist()))
 
 
 # ---------------------------------------------------------------------------

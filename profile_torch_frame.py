@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Profile one bench frame of the PyTorch + CUDA port on the GPU, per engine.
 
-    python3 profile_torch_frame.py
+    python3 profile_torch_frame.py [ENGINE ...]
 
-Renders the benchmark frame (bench scene, 1280x720, 4 bounces, AA, one
+ENGINE is any of bf16, f32, pallas_rows, wave (default: all four, in that
+order). Renders the benchmark frame (bench scene, 1280x720, 4 bounces, AA, one
 shadow ray) with the default bf16 engine, then with the exact f32 engine,
 then with the row-parallel exact engine (``traversal="pallas_rows"``), then
 with the wave engine (``traversal="wave"``, on the scene's classic BVH): for
-each, once to warm up, then once under ``torch.profiler``. Prints per engine
-the frame's wall time, the summed device time of all kernels and of the
+each, once to warm up, 3 times unprofiled (the median wall time: run it in
+two checkouts in turns to compare frames), then once under
+``torch.profiler``. Prints per engine the frame's wall times, the summed device time of all kernels and of the
 traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``, B3
 ``traverse_rows_kernel``, B4 ``leaf_mt_kernel`` and the wave engine's
 ``wave_scan_kernel``) with their launch counts, the waves the wave engine
@@ -19,6 +21,7 @@ and the top 30 operators by device time.
 from __future__ import annotations
 
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -33,6 +36,12 @@ def _profile(label, scene, cam, cfg, dev, card):
     r = Renderer(scene, cam, cfg, device=dev)
     r.tick(0)
     torch.cuda.synchronize()
+    plain_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r.tick(0)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     traverse_packet.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -53,6 +62,8 @@ def _profile(label, scene, cam, cfg, dev, card):
     b4 = [t for n, t in kernels if "leaf_mt_kernel" in n]
     scan = [t for n, t in kernels if "wave_scan_kernel" in n]
     print(f"card: {card}")
+    print(f"frame 1280x720 {label}: unprofiled wall median {statistics.median(plain_ms):.2f} "
+          f"ms over {[round(x, 2) for x in plain_ms]}")
     print(f"frame 1280x720 {label}: wall {wall_ms:.2f} ms, device "
           f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), B2 {sum(b2) / 1e3:.2f} ms "
           f"({len(b2)} launches), B1 {sum(b1) / 1e3:.2f} ms ({len(b1)} launches), "
@@ -82,10 +93,11 @@ def main() -> int:
     scene, cam, _ = build_bench_scene(legacy_bvh=True, device=dev)
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
-    for label, c in (("bf16", cfg), ("f32", cfg.replace(leaf_precision="f32")),
-                     ("pallas_rows", cfg.replace(traversal="pallas_rows")),
-                     ("wave", cfg.replace(traversal="wave"))):
-        _profile(label, scene, cam, c, dev, card)
+    engines = {"bf16": cfg, "f32": cfg.replace(leaf_precision="f32"),
+               "pallas_rows": cfg.replace(traversal="pallas_rows"),
+               "wave": cfg.replace(traversal="wave")}
+    for label in sys.argv[1:] or engines:
+        _profile(label, scene, cam, engines[label], dev, card)
     return 0
 
 

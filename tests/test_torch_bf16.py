@@ -125,6 +125,66 @@ def test_bf16_constants_match_reference():
                                                            jb.REFINE_WIN)
 
 
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """float64 -> the nearest bf16 value (ties to even), as float64: rounded
+    at the bf16 ulp of x's binade (2^-133 below the normal range), inf past
+    the largest finite bf16. A single rounding: torch's float64 -> bf16
+    conversion goes through float32 and would round twice."""
+    _, e = np.frexp(x)
+    ulp = np.ldexp(1.0, np.maximum(e - 8, -133))
+    with np.errstate(over="ignore", invalid="ignore"):
+        r = np.round(x / ulp) * ulp
+    return np.where(np.abs(r) >= 2.0 ** 128, np.copysign(np.inf, x), r)
+
+
+def _bf16_operands(gen, n) -> np.ndarray:
+    """(n, 2) finite bf16 bit patterns: uniform over all finite patterns,
+    plus pairs with a subnormal operand and pairs whose exponents differ by
+    14-18 (where the exact sum needs more than f32's 24 bits)."""
+    bits = gen.integers(0, 1 << 16, (3 * n, 2), dtype=np.uint16)
+    pairs = bits[((bits & 0x7F80) != 0x7F80).all(axis=1)][: n // 2]
+    sub = gen.integers(0, 1 << 16, (n // 4, 2), dtype=np.uint16)
+    sub[:, 0] &= 0x807F                                    # exponent 0
+    sub[:, 1] = np.where((sub[:, 1] & 0x7F80) == 0x7F80, sub[:, 1] & 0x807F, sub[:, 1])
+    gap = gen.integers(0, 1 << 16, (n // 4, 2), dtype=np.uint16) & 0x807F
+    e0 = gen.integers(19, 240, n // 4)
+    e1 = e0 - gen.integers(14, 19, n // 4)
+    gap[:, 0] |= (e0 << 7).astype(np.uint16)
+    gap[:, 1] |= (e1 << 7).astype(np.uint16)
+    return np.concatenate([pairs, sub, gap[:, ::-1], gap])
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "fma"])
+def test_bf16_rounding_premise(op):
+    """What kernel B2's packed bf16x2 sweep relies on (csrc/traverse_bf16.cu):
+    for an add, a subtract or a multiply of two bf16 operands, the plain
+    version's f32 operation rounded to bf16 equals the correctly rounded
+    result (float64, rounded once at the bf16 ulp), so a native bf16
+    operation gives the same bits; a fused multiply-add rounds once where the
+    plain version rounds twice, and differs. ~10^6 seeded operand pairs."""
+    gen = np.random.default_rng(21)
+    ab = torch.from_numpy(_bf16_operands(gen, 1 << 20).view(np.int16)).view(torch.bfloat16)
+    a, b = ab[:, 0], ab[:, 1]
+    a64, b64 = a.double().numpy(), b.double().numpy()
+    if op == "fma":
+        c = b.flip(0)
+        emulated = ((a.float() * b.float()).to(torch.bfloat16).float()
+                    + c.float()).to(torch.bfloat16)
+        exact = _bf16_round(a64 * b64 + c.double().numpy())
+    else:
+        f32, f64 = {"add": (torch.add, np.add), "sub": (torch.sub, np.subtract),
+                    "mul": (torch.mul, np.multiply)}[op]
+        emulated = f32(a.float(), b.float()).to(torch.bfloat16)
+        with np.errstate(over="ignore"):       # products past 2^128: inf
+            exact = _bf16_round(f64(a64, b64))
+    want = torch.from_numpy(exact).float().to(torch.bfloat16)   # exact: representable
+    same = emulated.view(torch.int16) == want.view(torch.int16)
+    if op == "fma":
+        assert int((~same).sum()) > 0
+    else:
+        assert bool(same.all()), f"{int((~same).sum())} of {same.numel()} differ"
+
+
 @pytest.mark.parametrize("level", ["one-level", "two-level"])
 def test_plain_closest_vs_pallas(tables, jax_kernel, level):
     _, td = tables[level]

@@ -172,6 +172,56 @@ def test_plain_reports_ties():
     np.testing.assert_array_equal(tie, found & _ties(tri, o, d))
 
 
+@pytest.mark.parametrize("level", sorted(TABLES))
+@pytest.mark.parametrize("bf16", [False, True])
+def test_derived_leaf_tables(level, bf16):
+    """The port's derived tables (bvh/dense.py), on f32-only tables and on
+    tables with the bf16 leaves: B1's leaf record g*C + j holds rows 0-9 of
+    group g at slot j for j < c, the period of the group's node code (as
+    _pack_groups_bf finds it), and prim -1 (zero geometry) for c <= j < C;
+    B2's band pairs are groups_bf with each column's 32 rows contiguous."""
+    jd, _ = TABLES[level]()
+    if bf16:
+        td = DenseBVH.from_numpy(**{k: np.asarray(getattr(jd, k)) for k in jd._fields
+                                    if getattr(jd, k) is not None}, device="cpu")
+    else:
+        td = _port(jd)
+    G = td.n_groups
+    rows = td.groups.reshape(G, 16, 128).numpy()
+    rec = td.leaf_rec.numpy()
+    C = rec.shape[0] // G
+    assert rec.shape == (G * C, 12) and td.leaf_rec.data_ptr() % 16 == 0
+    rec = rec.reshape(G, C, 12)
+    nodes = td.nodes16.numpy().reshape(-1, 16)
+    periods = {}
+    for code in np.rint(nodes[:, 12:14]).astype(np.int64).ravel():
+        v = -(code + 1)
+        if code < 0 and code != ttrace.ABSENT and v % 2 == 0:
+            periods[(v // 2) // 8] = 1 << ((v // 2) % 8)
+    assert periods and C == max(periods.values())
+    for g, c in periods.items():
+        want = rows[g, :10, :c].T                              # (c, 10)
+        np.testing.assert_array_equal(rec[g, :c, 0:3], want[:, 0:3])
+        np.testing.assert_array_equal(rec[g, :c, 4:7], want[:, 3:6])
+        np.testing.assert_array_equal(rec[g, :c, 8:11], want[:, 6:9])
+        np.testing.assert_array_equal(rec[g, :c, 3], want[:, 9])
+        np.testing.assert_array_equal(rec[g, c:, 3], -1.0)
+        assert not rec[g, c:, [0, 1, 2, 4, 5, 6, 7, 8, 9, 10, 11]].any()
+        assert not rec[g, :c, [7, 11]].any()
+    if not bf16:
+        assert td.groups_bf2 is None
+        return
+    gbf = td.groups_bf.view(torch.int16).reshape(G, 32, 128).numpy()
+    pairs = td.groups_bf2.view(torch.int16).numpy()
+    assert pairs.shape == (G, 128, 32) and td.groups_bf2.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(pairs, gbf.transpose(0, 2, 1))
+    # word i of column l is (band 0, band 1) of component i: rows 2i, 2i+1
+    words = td.groups_bf2.view(torch.int32).numpy().view(np.uint32)
+    g, lane, i = G - 1, 5, 4
+    assert words[g, lane, i] == ((int(gbf[g, 2 * i, lane]) & 0xFFFF)
+                                 | (int(gbf[g, 2 * i + 1, lane]) & 0xFFFF) << 16)
+
+
 def test_morton_key():
     """The octant-major key, the mode the traversal wrappers sort by."""
     o, d = _rays(1000, seed=6, radius=3.0)

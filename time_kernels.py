@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Times kernels B1 and B2 of two checkouts of the port on one GPU, in turns.
+
+    python3 time_kernels.py --compare OTHER_ROOT     # OTHER, this, this, OTHER
+    python3 time_kernels.py [--root ROOT] --out FILE.json
+
+``--compare`` unpacks nothing itself: OTHER_ROOT is another checkout of the
+repository (e.g. the parent commit, from ``git archive``). It runs one
+process per turn, in the order other, this, this, other, each on the same
+card, and prints per kernel, set and mode both checkouts' median times,
+bounds (each over the tables its own kernel reads), shares of bound and the
+counted work; it fails if the two
+checkouts count different work on the same rays (node steps, triangle or
+band tests, leaf visits). Each turn's JSON goes to ``--out-dir`` (default
+``build/time_kernels/``). Frame times in turns: ``profile_torch_frame.py``
+run in each checkout.
+
+One turn (``--out``) imports the package from ROOT (default: this
+checkout), builds its kernels, and on the bench scene's two-level table
+(``build_bench_scene(flatten="auto")``) and ``chip_smoke.py``'s three
+131,072-ray sets (primary, bounce, shadow; co-sorted as the main path sorts
+them) times each of B1 and B2 in closest and any mode, and B1 as the bf16
+engine's retest of the lanes B2 leaves uncertain (also with the L2 flushed
+before each run, as the frame finds it): the median of ``--runs``
+CUDA-event runs after a warm-up, each behind a ~1 ms device sleep, so that
+only device time counts. It counts the work of each launch with the
+kernel's counting instantiation and computes the bound as ``chip_smoke.py``
+does, with that checkout's ``chip_smoke.py``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+L2_FLUSH_BYTES = 128 << 20  # written before each cold run: more than the 50 MB L2
+
+
+def _event_ms(fn):
+    """Device time of fn's launches: the card first sleeps ~1 ms, so that the
+    host queues the events and the launch (the wrapper's checks and
+    allocations) before the card reaches them."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _median_ms(*fns, runs, flush=None):
+    """Median CUDA-event time of each of ``fns`` over ``runs`` rounds, after
+    a warm-up; the functions take turns within each round. ``flush``: a
+    tensor written before each run (untimed), so that the run finds the
+    tables out of L2, as the frame's retest does."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(runs):
+        for t, fn in zip(times, fns):
+            if flush is not None:
+                flush.add_(1)
+            t.append(_event_ms(fn))
+    return [statistics.median(t) for t in times]
+
+
+def turn(root, runs, out_path):
+    sys.path.insert(0, os.path.abspath(root))
+    sys.path.insert(1, HERE)
+    import torch
+    import chip_smoke
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    scene, cam, _ = build_bench_scene(flatten="auto", device=dev)
+    cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
+                       skybox=False, one_shadow_ray=True, chunk_pixels=65536)
+    sets = chip_smoke._ray_sets(scene, cam, cfg, dev)
+    dbvh = scene.dense
+    flush = torch.zeros((L2_FLUSH_BYTES // 4,), dtype=torch.float32, device=dev)
+    res = dict(root=os.path.abspath(root), card=chip_smoke._smi(), build_s=build_s,
+               kernels={})
+    for sname, (o, d, tm) in sets.items():
+        _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+        for mode in ("closest", "any"):
+            closest = mode == "closest"
+            kern = {"f32": (lambda: trace._traverse(dbvh, o_s, d_s, tm_s, closest),
+                            trace.count_work),
+                    "bf16": (lambda: trace_bf16._call_bf16(dbvh, o_s, d_s, tm_s, closest),
+                             trace_bf16.count_work)}
+            for eng, (fn, count) in kern.items():
+                ms, = _median_ms(fn, runs=runs)
+                work = count(dbvh, o_s, d_s, tm_s, closest)
+                b_ms, b_by, nbytes = chip_smoke._bound(eng, mode, dbvh, o.shape[0],
+                                                       work["ops"])
+                res["kernels"][f"{eng} {sname} {mode}"] = dict(
+                    ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, work=work)
+            if not closest:
+                # B1 as the bf16 engine's retest: the lanes B2 leaves
+                # uncertain, t_max 0 elsewhere, in sorted order (as
+                # trace_bf16._resolve_uncertain launches it)
+                cert, unc = trace_bf16._call_bf16(dbvh, o_s, d_s, tm_s, False)
+                tm_r = torch.where(unc & ~cert, tm_s, torch.zeros_like(tm_s))
+                retest = lambda: trace._traverse(dbvh, o_s, d_s, tm_r, False)
+                ms, = _median_ms(retest, runs=runs)
+                cold, = _median_ms(retest, runs=runs, flush=flush)
+                res["kernels"][f"f32 {sname} retest"] = dict(
+                    ms=ms, cold_ms=cold, lanes=int((unc & ~cert).sum()),
+                    work=trace.count_work(dbvh, o_s, d_s, tm_r, False))
+    res["truncated"] = trace.truncated_rays(dev) + trace_bf16.truncated_rays(dev)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res), flush=True)
+
+
+def compare(other, runs, out_dir):
+    os.makedirs(out_dir, exist_ok=True)
+    order = (("other", other), ("this", HERE), ("this", HERE), ("other", other))
+    got = []
+    for i, (who, root) in enumerate(order):
+        path = os.path.join(out_dir, f"turn{i}_{who}.json")
+        cmd = [sys.executable, os.path.abspath(__file__), "--root", root, "--runs",
+               str(runs), "--out", path]
+        print(f"== turn {i}: {who} ({root})", flush=True)
+        subprocess.run(cmd, check=True, stdout=subprocess.DEVNULL)
+        with open(path) as f:
+            got.append((who, json.load(f)))
+    card = got[0][1]["card"]
+    print(f"card: {card}")
+    bad = []
+    for name in got[0][1]["kernels"]:
+        row = {who: [r["kernels"][name] for w, r in got if w == who] for who in ("other", "this")}
+        o_ms = [k["ms"] for k in row["other"]]
+        t_ms = [k["ms"] for k in row["this"]]
+        wo, wt = row["other"][0]["work"], row["this"][0]["work"]
+        if {k: wo[k] for k in wo if k != "ops"} != {k: wt[k] for k in wt if k != "ops"}:
+            bad.append(f"{name}: counted work differs: {wo} vs {wt}")
+        b = row["this"][0]
+        if "bound_ms" not in b:       # the retest: timed, no bound reported
+            o_c = [k["cold_ms"] for k in row["other"] if "cold_ms" in k]
+            t_c = [k["cold_ms"] for k in row["this"]]
+            cold = (f"; L2 flushed first: other {' / '.join(f'{x:.4f}' for x in o_c)} ms, "
+                    f"this {' / '.join(f'{x:.4f}' for x in t_c)} ms" if o_c else "")
+            print(f"{name:20s} other {o_ms[0]:.4f} / {o_ms[1]:.4f} ms, this {t_ms[0]:.4f} / "
+                  f"{t_ms[1]:.4f} ms, this / other "
+                  f"{statistics.mean(t_ms) / statistics.mean(o_ms):.3f}{cold}; {b['lanes']} "
+                  f"uncertain lanes; work {json.dumps({k: v for k, v in wt.items() if k != 'ops'})}"
+                  f" [{card}]")
+            continue
+        # each checkout's bound counts the tables its own kernel reads
+        o_b = row["other"][0]
+        print(f"{name:20s} other {o_ms[0]:.4f} / {o_ms[1]:.4f} ms, this {t_ms[0]:.4f} / "
+              f"{t_ms[1]:.4f} ms, this / other {statistics.mean(t_ms) / statistics.mean(o_ms):.3f}; "
+              f"bound other {o_b['bound_ms']:.5f} ms ({o_b['bound_by']}), this "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}); share other "
+              f"{100 * o_b['bound_ms'] / statistics.mean(o_ms):.2f}% this "
+              f"{100 * b['bound_ms'] / statistics.mean(t_ms):.2f}%; work "
+              f"{json.dumps({k: v for k, v in wt.items() if k != 'ops'})} [{card}]")
+    if any(r["truncated"] for _, r in got):
+        bad.append("truncated rays")
+    if bad:
+        raise SystemExit("time_kernels: " + "; ".join(bad))
+    print(json.dumps({"ok": True, "card": card}))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--compare", metavar="OTHER_ROOT")
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--runs", type=int, default=20)
+    ap.add_argument("--out")
+    ap.add_argument("--out-dir", default=os.path.join(HERE, "build", "time_kernels"))
+    a = ap.parse_args()
+    if a.compare:
+        compare(a.compare, a.runs, a.out_dir)
+    elif a.out:
+        turn(a.root, a.runs, a.out)
+    else:
+        ap.error("give --compare OTHER_ROOT or --out FILE")
+
+
+if __name__ == "__main__":
+    main()
