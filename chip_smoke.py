@@ -6,18 +6,22 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
-port's five kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32 engine),
+port's six kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32 engine),
 ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the ``RenderConfig``
 default), ``csrc/traverse_rows.cu`` (B3, the row-parallel exact engine,
 ``traversal="pallas_rows"``), ``csrc/leaf_mt.cu`` (B4, the wave engine's
-dense leaf phase) and ``csrc/wave_scan.cu`` (the wave engine's node scan, a
-port-only kernel), with one ``nvcc`` each, started together (into
-``build/torch_kernels/``), then:
+dense leaf phase), ``csrc/wave_scan.cu`` (the wave engine's node scan, a
+port-only kernel) and ``csrc/wave_level.cu`` (port-only: one launch per
+cascade level running the scan, B4's function and the tile update in a
+loop on the card; the wave engine's ``dense="mt"`` path), with one
+``nvcc`` each, started together (into ``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
    the kernel build times and ptxas logs, and again, per kernel function of
-   B1 and B2, ptxas's lines on its registers, stack frame (local memory) and
-   spill bytes (demangled by ``c++filt`` where the host has it);
+   B1, B2 and the fused level, ptxas's lines on its registers, stack frame
+   (local memory) and spill bytes (demangled by ``c++filt`` where the host
+   has it); the fused level's four instantiations must use <= 64 registers
+   and spill nothing;
 1b. the exhaustive check of B2's packed bf16x2 operations
    (``trace_bf16.packed_op_mismatches``): the sweep's mul, add, sub, min, max
    and abs helpers over all 2^32 bf16 operand pairs against f32 arithmetic
@@ -88,21 +92,32 @@ port-only kernel), with one ``nvcc`` each, started together (into
    atol 2e-5) and 1536 with the bf16 engine (>= 98%; its plain version is
    ~2.5x slower on the CPU);
 10. the wave engine (``traversal="wave"``, on the bench scene's classic BVH,
-   built with ``legacy_bvh=True``): (a) B4 and the node-scan kernel vs their
-   plain versions on every wave of one full engine call per set and mode
-   (the sorted wrappers on the first 122,880 rays of each set: one AA chunk
-   of the frame, 960 tiles of 128 at level 0 of the cascade and 120 at
-   level 1): the scan's cur, sp, stack, nleaf, leafbuf and active equal,
-   B4's t, u, v, prim bit-equal and its occlusion equal; each kernel timed
-   (CUDA events) on the call's wave with the most triangle tests, its bound
-   from that wave's work (``count_work`` of ``ops/leaf_mt.py`` and
-   ``ops/wave_scan.py``); (b) the whole wave engine vs B1 on the three
-   131,072-ray sets: found and occlusion mismatch each <= 0.01%, the same
-   prim on >= 99.95% of the rays both hit, waves and launches per call
-   printed; (c) the main path with ``traversal="wave"``: one warm-up and one
-   timed tick, B4 (both modes) and the scan kernel launched, B1-B3 never,
-   plain versions never, no truncated push, a finite image, >= 99.99% of
-   pixels allclose (rtol 2e-4, atol 2e-5) to the f32 frame of the same key;
+   built with ``legacy_bvh=True``): (a) one full engine call per set and
+   mode (the sorted wrappers on the first 122,880 rays of each set: one AA
+   chunk of the frame, 960 tiles of 128 at level 0 of the cascade and 120
+   at level 1) with every level run one wave a launch (``max_waves=1``):
+   each wave of the fused level bit-equal to the plain wave on the same
+   state, and B4 and the node-scan kernel vs their plain versions on that
+   wave's inputs (the scan's cur, sp, stack, nleaf, leafbuf and active
+   equal, B4's t, u, v, prim bit-equal and its occlusion equal); then the
+   same call with whole levels, each bit-equal to ``plain_run_level`` with
+   as many waves; the fused level timed (CUDA events) over each call's
+   levels, its bound from the scan's and B4's ``count_work`` summed over the
+   call's waves, its plain version on the heaviest call of each mode; B4 and
+   the scan timed on the call's wave with the most triangle tests, with that
+   wave's bound; the fused level's other paths (tiles that do not fit at
+   once, a node table too large for shared memory) against the plain level
+   over 1 and 30 waves; (b) one sorted call per mode under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync, one fused
+   launch per level, no standalone B4 or scan launch; (c) the whole wave
+   engine vs B1 on the three 131,072-ray sets: found and occlusion mismatch
+   each <= 0.01%, the same prim on >= 99.95% of the rays both hit, waves,
+   levels and fused launches per call printed; (d) the main path with
+   ``traversal="wave"``: one warm-up and 3 timed ticks, the fused level
+   launched once per cascade level in both modes, B4, the scan, B1-B3 and
+   every plain version never, no truncated push, a finite image, >= 99.99%
+   of pixels allclose (rtol 2e-4, atol 2e-5) to the f32 frame of the same
+   key;
 11. prints the kernels' JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -114,6 +129,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -136,6 +152,10 @@ KERNELS = {
     # port-only: replaces XLA code (a lax.scan), not a TPU kernel
     "wave_scan": (f"{PKG}/csrc/wave_scan.cu",
                   "physically_based_ray_tracer_tpu/ops/traverse_packet.py:381"),
+    # port-only: one launch per cascade level for _wave_run's lax.while_loop
+    # (the scan, B4 and the tile update), not a TPU kernel
+    "wave_level": (f"{PKG}/csrc/wave_level.cu",
+                   "physically_based_ray_tracer_tpu/ops/traverse_packet.py:479"),
 }
 T_RTOL = 1e-6
 PLAIN_RUNS = 2          # timed runs of each plain version (each ~1-2 s)
@@ -487,160 +507,360 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-class _WaveCheck:
-    """Entered around one wave-engine call: every wave's scan and B4 launch
-    is held against its plain version on that wave's own inputs (the scan's
-    cur, sp, stack, nleaf, leafbuf, active equal; B4's t, u, v, prim
-    bit-equal or its occlusion equal), at every level of the cascade. It
-    swaps the module functions the engine calls for checking ones while
-    entered, and keeps the wave with the most triangle tests for timing."""
+def _ptxas_usage(log):
+    """{kernel function: registers, stack frame and spill bytes} from nvcc's
+    ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(registers=None, stack_bytes=None, spill_bytes=None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
-    SCAN_IN = ("o_lo", "o_hi", "rd_lo", "rd_hi", "t_tile")
 
-    def __init__(self, mode, level0_tiles):
-        self.mode, self.level0_tiles = mode, level0_tiles
-        self.r = dict(waves=0, level1_waves=0, scan_mismatch=0, b4_mismatch=0,
+class _LevelCheck:
+    """Entered around one wave-engine call: ``wave_level.run_level``, which
+    the engine calls once per cascade level, is replaced by a checking one.
+
+    ``per_wave``: each level runs one wave a launch (``max_waves=1``, the
+    level's test read on the host), and every wave's state is held
+    bit-equal against the plain wave on the same input state
+    (``plain_node_scan`` -> plain B4 -> ``_tile_update``); the standalone
+    scan kernel and B4 are held against their plain versions on that wave's
+    own inputs (the scan's cur, sp, stack, nleaf, leafbuf, active equal,
+    B4's t, u, v, prim bit-equal or its occlusion equal). It sums the
+    scan's and B4's ``count_work`` over the waves (the bound) and keeps the
+    wave with the most triangle tests for timing. Otherwise each whole level
+    (one launch) is held against ``plain_run_level`` from the same state:
+    state bit-equal, as many waves; each level's entry state is kept for
+    timing."""
+
+    def __init__(self, mode, per_wave):
+        self.mode, self.per_wave = mode, per_wave
+        self.r = dict(levels=0, waves=0, level1_waves=0, wave_mismatch=0, scan_mismatch=0,
+                      b4_mismatch=0, level_mismatch=0, level_wave_mismatch=0,
                       t_max_abs=0.0, tri_tests=0)
+        self.work = dict(ops=0, bytes=0)
         self.heavy = None
+        self.levels = []
 
     def __enter__(self):
-        from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
-        self.mods = (wave_scan, leaf_mt)
-        self.dense_name = "leaf_intersect" if self.mode == "closest" else "leaf_any"
-        self.real = (wave_scan.node_scan, getattr(leaf_mt, self.dense_name))
-        wave_scan.node_scan = self.scan
-        setattr(leaf_mt, self.dense_name, self.dense)
+        from physically_based_ray_tracer_tpu_torch.ops import wave_level
+        self.wl, self.real = wave_level, wave_level.run_level
+        wave_level.run_level = self.one_wave_at_a_time if self.per_wave else self.whole
         return self
 
     def __exit__(self, *exc):
-        wave_scan, leaf_mt = self.mods
-        wave_scan.node_scan = self.real[0]
-        setattr(leaf_mt, self.dense_name, self.real[1])
+        self.wl.run_level = self.real
         return False
 
-    def scan(self, bvh, st, node_steps, leaf_cap):
-        wave_scan = self.mods[0]
-        scan_in = {k: st[k] for k in self.SCAN_IN}
-        scan_in.update((k, st[k].clone()) for k in wave_scan.STATE_KEYS)
-        got = self.real[0](bvh, st, node_steps, leaf_cap)
-        want = wave_scan.plain_node_scan(bvh, scan_in, node_steps, leaf_cap)
-        self.r["scan_mismatch"] += sum(int((a != b).sum()) for a, b in zip(got, want))
-        self.scan_in = scan_in
-        return got
+    def _mismatch(self, got, want):
+        return sum(int((_bits(got[k]) != _bits(want[k])).sum())
+                   for k in self.wl.LEVEL_KEYS[self.mode])
 
-    def dense(self, o_t, d_t, tmax_t, *rest, leaf_size):
-        leaf_mt = self.mods[1]
-        *state, leafbuf, nleaf, tris = rest
-        state0 = [x.clone() for x in state]
-        self.real[1](o_t, d_t, tmax_t, *rest, leaf_size=leaf_size)
-        if self.mode == "closest":
-            want = leaf_mt.plain_leaf_intersect(o_t, d_t, tmax_t, *state0, leafbuf, nleaf,
-                                                tris, leaf_size)
+    def one_wave_at_a_time(self, bvh, st, *, closest, node_steps, leaf_cap, leaf_size,
+                           min_active, max_waves=None, dense="mt"):
+        from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
+        self.r["levels"] += 1
+        while int(st["active"].sum()) > min_active:
+            st0 = {k: v.clone() for k, v in st.items()}
+            self.real(bvh, st, closest=closest, node_steps=node_steps, leaf_cap=leaf_cap,
+                      leaf_size=leaf_size, min_active=min_active, max_waves=1, dense=dense)
+            # the plain wave, and the standalone scan kernel on its input
+            scan = wave_scan.plain_node_scan(bvh, st0, node_steps, leaf_cap)
+            cur, sp, stack, nleaf, leafbuf, active = scan
+            scan_in = dict(st0, **{k: st0[k].clone() for k in wave_scan.STATE_KEYS})
+            got = wave_scan.node_scan(bvh, scan_in, node_steps, leaf_cap)
+            self.r["scan_mismatch"] += sum(int((a != b).sum()) for a, b in zip(got, scan))
+            plain = dict(st0, cur=cur, sp=sp, stack=stack, active=active)
+            rays = (st0["o_t"], st0["d_t"], st0["tmax"])
+            keys = ("t", "u", "v", "prim") if closest else ("occ",)
+            state0 = [st0[k] for k in keys]
+            kern = [x.clone() for x in state0]
+            if closest:
+                want = leaf_mt.plain_leaf_intersect(*rays, *state0, leafbuf, nleaf, bvh.tris,
+                                                    leaf_size)
+                leaf_mt.leaf_intersect(*rays, *kern, leafbuf, nleaf, bvh.tris,
+                                       leaf_size=leaf_size)
+                self.r["t_max_abs"] = max(self.r["t_max_abs"],
+                                          float((kern[0] - want[0]).abs().max()),
+                                          float((st["t"] - want[0]).abs().max()))
+            else:
+                want = (leaf_mt.plain_leaf_any(*rays, *state0, leafbuf, nleaf, bvh.tris,
+                                               leaf_size),)
+                leaf_mt.leaf_any(*rays, *kern, leafbuf, nleaf, bvh.tris, leaf_size=leaf_size)
+            self.r["b4_mismatch"] += sum(int((_bits(a) != _bits(b)).sum())
+                                         for a, b in zip(kern, want))
+            plain.update(zip(keys, want))
+            plain = self.wl._tile_update(plain, closest=closest)
+            self.r["wave_mismatch"] += self._mismatch(st, plain)
+            # the bound's work, and the heaviest wave
+            T, W = st0["tmax"].shape
+            sw = wave_scan.count_work(bvh, st0, node_steps, leaf_cap)
+            bw = leaf_mt.count_work(leafbuf, nleaf, W, leaf_size, self.mode)
+            self.work["ops"] += sw["ops"]["f32"] + bw["ops"]["f32"]
+            self.work["bytes"] += sw["bytes"] + bw["bytes"]
+            self.r["tri_tests"] += bw["tri_tests"]
+            self.r["level1_waves"] += int(self.r["levels"] > 1)
+            if self.heavy is None or bw["tri_tests"] > self.heavy["tests"]:
+                self.heavy = dict(tests=bw["tri_tests"], scan_in=st0, rays=rays,
+                                  leafbuf=leafbuf.clone(), nleaf=nleaf.clone(),
+                                  state0=[x.clone() for x in state0], tris=bvh.tris,
+                                  leaf_size=leaf_size, wave=self.r["waves"], tiles=T,
+                                  node_steps=node_steps, leaf_cap=leaf_cap)
+            self.r["waves"] += 1
+        return st
+
+    def whole(self, bvh, st, *, closest, node_steps, leaf_cap, leaf_size, min_active,
+              max_waves=None, dense="mt"):
+        kw = dict(closest=closest, node_steps=node_steps, leaf_cap=leaf_cap,
+                  leaf_size=leaf_size, min_active=min_active)
+        st0 = {k: v.clone() for k, v in st.items()}
+        n0 = self.wl.collect_waves()[self.mode]
+        self.real(bvh, st, dense=dense, **kw)
+        n_kernel = self.wl.collect_waves()[self.mode] - n0
+        want = self.wl.plain_run_level(bvh, st0, **kw)
+        n_plain = self.wl.collect_waves()[self.mode] - n0 - n_kernel
+        self.r["level_mismatch"] += self._mismatch(st, want)
+        self.r["level_wave_mismatch"] += int(n_kernel != n_plain)
+        if closest:
             self.r["t_max_abs"] = max(self.r["t_max_abs"],
-                                      float((state[0] - want[0]).abs().max()))
-        else:
-            want = (leaf_mt.plain_leaf_any(o_t, d_t, tmax_t, *state0, leafbuf, nleaf,
-                                           tris, leaf_size),)
-        self.r["b4_mismatch"] += sum(int((_bits(a) != _bits(b)).sum())
-                                     for a, b in zip(state, want))
-        T, W = tmax_t.shape
-        tests = int(leaf_mt.leaf_columns(leafbuf, nleaf, leaf_size)[1].sum()) * W
-        self.r["tri_tests"] += tests
-        self.r["level1_waves"] += int(T < self.level0_tiles)
-        if self.heavy is None or tests > self.heavy["tests"]:
-            self.heavy = dict(tests=tests, scan_in=self.scan_in, rays=(o_t, d_t, tmax_t),
-                              leafbuf=leafbuf.clone(), nleaf=nleaf.clone(), state0=state0,
-                              tris=tris, leaf_size=leaf_size, wave=self.r["waves"], tiles=T)
-        self.r["waves"] += 1
-        return state[0] if self.mode == "any" else tuple(state)
+                                      float((st["t"] - want["t"]).abs().max()))
+        self.r["levels"] += 1
+        self.r["waves"] += n_kernel
+        self.levels.append(dict(state=st0, kw=kw, waves=n_kernel))
+        return st
 
 
-def _wave_kernel_checks(bvh, sets, card):
-    """B4 and the scan kernel vs their plain versions on every wave of one
-    full engine call per set and mode (the sorted wrappers on the first
-    WAVE_RAYS rays of the set: one AA chunk of the frame, both cascade
-    levels); then each kernel timed on the call's wave with the most
-    triangle tests, with that wave's bound. Returns {(kernel, set, mode):
-    dict}."""
-    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
+def _wave_calls(bvh, o, d, tm, mode):
+    """One sorted wave-engine call (the main path's wrappers)."""
     from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
-    out = {}
+    if mode == "closest":
+        return tp.sorted_closest(tp.intersect_closest_wave, bvh, o, d, tm)
+    return tp.sorted_any(tp.intersect_any_wave, bvh, o, d, tm)
+
+
+def _wave_level_checks(bvh, sets, card):
+    """The fused level kernel, B4 and the scan kernel vs their plain versions
+    on one full engine call per set and mode (the sorted wrappers on the
+    first WAVE_RAYS rays of the set: one AA chunk of the frame, 960 tiles at
+    level 0 of the cascade, 120 at level 1): every wave (``_LevelCheck``
+    per wave), then every whole level. Then times on each call: the fused
+    kernel over the call's levels (its bound from the summed work of the
+    scan and B4 over the call's waves; its plain version on the heaviest
+    call of each mode), B4 and the scan kernel on the call's wave with the
+    most triangle tests, with that wave's bound. Returns {(kernel, set,
+    mode): dict}."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_level, wave_scan
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    out, checked = {}, {}
     level1 = 0
     for sname, (o, d, tm) in sets.items():
         o, d, tm = o[:WAVE_RAYS], d[:WAVE_RAYS], tm[:WAVE_RAYS]
         for mode in ("closest", "any"):
-            closest = mode == "closest"
             tp.reset_counts()
-            with _WaveCheck(mode, WAVE_RAYS // 128) as chk:
-                if closest:
-                    tp.sorted_closest(tp.intersect_closest_wave, bvh, o, d, tm)
-                else:
-                    tp.sorted_any(tp.intersect_any_wave, bvh, o, d, tm)
+            with _LevelCheck(mode, per_wave=True) as chk:
+                res_wave = _wave_calls(bvh, o, d, tm, mode)
             r = chk.r
-            print(f"  wave {sname} {mode}, every wave: {json.dumps(r)}", flush=True)
-            _check(r["waves"] == tp.WAVES[mode] > 0, f"wave {sname} {mode}: waves unchecked")
+            waves_run = tp.collect_waves()[mode]
+            launches = wave_level.LAUNCHES[mode]
+            with _LevelCheck(mode, per_wave=False) as lv:
+                res_level = _wave_calls(bvh, o, d, tm, mode)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(
+                res_wave if mode == "closest" else [res_wave],
+                res_level if mode == "closest" else [res_level]))
+            r.update(level_mismatch=lv.r["level_mismatch"],
+                     level_wave_mismatch=lv.r["level_wave_mismatch"],
+                     level_waves=lv.r["waves"], results_equal=same)
+            print(f"  wave {sname} {mode}, every wave and every level: {json.dumps(r)}",
+                  flush=True)
+            _check(r["waves"] == waves_run == launches > 0,
+                   f"wave {sname} {mode}: a max_waves=1 launch did not run one wave")
+            _check(r["wave_mismatch"] == 0, f"wave {sname} {mode}: wave_level != plain wave")
             _check(r["scan_mismatch"] == 0, f"wave {sname} {mode}: scan kernel != plain")
             _check(r["b4_mismatch"] == 0, f"wave {sname} {mode}: B4 != plain")
+            _check(r["level_mismatch"] == 0 and r["level_wave_mismatch"] == 0,
+                   f"wave {sname} {mode}: a level differs from plain_run_level")
+            _check(lv.r["waves"] == r["waves"] and lv.r["levels"] == r["levels"] and same,
+                   f"wave {sname} {mode}: levels and waves one at a time differ")
             _check(wave_scan.truncated_pushes(o.device) == 0, "scan stack overflow")
             level1 += r["level1_waves"]
-
-            # times and bounds on the heaviest wave
-            h = chk.heavy
-            rays, lb, nl, tris, K = h["rays"], h["leafbuf"], h["nleaf"], h["tris"], h["leaf_size"]
-            T, W = rays[2].shape
-            fresh = lambda: [x.clone() for x in h["state0"]]
-            if closest:
-                k_fn = lambda *s: leaf_mt.leaf_intersect(*rays, *s, lb, nl, tris, leaf_size=K)
-                p_fn = lambda *s: leaf_mt.plain_leaf_intersect(*rays, *s, lb, nl, tris, K)
-            else:
-                k_fn = lambda *s: leaf_mt.leaf_any(*rays, *s, lb, nl, tris, leaf_size=K)
-                p_fn = lambda *s: leaf_mt.plain_leaf_any(*rays, *s, lb, nl, tris, K)
-            b4_work = leaf_mt.count_work(lb, nl, W, K, mode)
-            scan_work = wave_scan.count_work(bvh, h["scan_in"], 8, lb.shape[1])
-            scan_fresh = lambda: [dict(h["scan_in"], **{k: h["scan_in"][k].clone()
-                                                        for k in wave_scan.STATE_KEYS})]
-            for name, fn, pfn, setup, work, err in (
-                    ("leaf_mt", k_fn, p_fn, fresh, b4_work,
-                     r["t_max_abs"] if closest else float(r["b4_mismatch"] > 0)),
-                    ("wave_scan", lambda s: wave_scan.node_scan(bvh, s, 8, 4),
-                     lambda s: wave_scan.plain_node_scan(bvh, s, 8, 4), scan_fresh,
-                     scan_work, float(r["scan_mismatch"] > 0))):
-                k_ms = _time_ms(fn, runs=20, setup=setup, ahead=True)
-                p_ms = _time_ms(pfn, runs=PLAIN_RUNS, warmup=False, setup=setup)
-                t_ops = work["ops"]["f32"] / PEAK_OPS["f32"]
-                t_bytes = work["bytes"] / PEAK_BYTES
-                b_ms = max(t_ops, t_bytes) * 1e3
-                out[(name, sname, mode)] = dict(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                    bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err)
-                print(f"time {name} {mode:7s} {sname:7s} wave {h['wave']} of {T} tiles: "
-                      f"kernel {k_ms:.5f} ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
-                      f"({out[(name, sname, mode)]['bound_by']}: {json.dumps(work)}), "
-                      f"bound / kernel {100 * b_ms / k_ms:.2f}% [{card}]", flush=True)
+            checked[(sname, mode)] = (chk, lv)
     _check(level1 > 0, "no level-1 wave was checked")
+
+    heaviest = {mode: max((s for s, m in checked if m == mode),
+                          key=lambda s: checked[(s, mode)][0].r["tri_tests"])
+                for mode in ("closest", "any")}
+    for (sname, mode), (chk, lv) in checked.items():
+        closest = mode == "closest"
+        r = chk.r
+        # the fused kernel over the call's levels
+        per_level, plain_ms = [], 0.0
+        for level in lv.levels:
+            fresh = lambda lev=level: [{k: v.clone() for k, v in lev["state"].items()}]
+            per_level.append(_time_ms(lambda s, lev=level: wave_level.run_level(
+                bvh, s, **lev["kw"]), runs=20, setup=fresh, ahead=True))
+            if heaviest[mode] == sname:
+                plain_ms += _time_ms(lambda s, lev=level: wave_level.plain_run_level(
+                    bvh, s, **lev["kw"]), runs=PLAIN_RUNS, warmup=False, setup=fresh)
+        level_ms = sum(per_level)
+        # each level's tiles, waves and device microseconds a wave
+        per_level = [(lev["state"]["cur"].shape[0], lev["waves"], ms_ * 1e3 / max(lev["waves"], 1))
+                     for lev, ms_ in zip(lv.levels, per_level)]
+        t_ops = chk.work["ops"] / PEAK_OPS["f32"]
+        t_bytes = chk.work["bytes"] / PEAK_BYTES
+        b_ms = max(t_ops, t_bytes) * 1e3
+        out[("wave_level", sname, mode)] = dict(
+            ms=level_ms, plain_ms=plain_ms if heaviest[mode] == sname else None,
+            bound_ms=b_ms, bound_by="operations" if t_ops >= t_bytes else "bytes",
+            max_abs_err=r["t_max_abs"] if closest else float(r["wave_mismatch"] > 0),
+            waves=r["waves"], ms_per_wave=level_ms / r["waves"], levels=len(lv.levels),
+            tiles_waves_us_per_level=per_level, heaviest=heaviest[mode] == sname)
+        print(f"time wave_level {mode:7s} {sname:7s} one engine call, {len(lv.levels)} "
+              f"levels, {r['waves']} waves: kernel {level_ms:.4f} ms "
+              f"({level_ms / r['waves'] * 1e3:.3f} us a wave), "
+              + (f"plain {plain_ms:.1f} ms, " if heaviest[mode] == sname else "")
+              + f"bound {b_ms:.6f} ms ({out[('wave_level', sname, mode)]['bound_by']}: "
+              f"ops {chk.work['ops']}, bytes {chk.work['bytes']}), bound / kernel "
+              f"{100 * b_ms / level_ms:.2f}%; per level (tiles, waves, us a wave) "
+              f"{per_level}; launch {wave_level.LAST_LAUNCH} [{card}]",
+              flush=True)
+
+        # B4 and the scan kernel on the heaviest wave
+        h = chk.heavy
+        rays, lb, nl, tris, K = h["rays"], h["leafbuf"], h["nleaf"], h["tris"], h["leaf_size"]
+        T, W = rays[2].shape
+        fresh = lambda: [x.clone() for x in h["state0"]]
+        if closest:
+            k_fn = lambda *s: leaf_mt.leaf_intersect(*rays, *s, lb, nl, tris, leaf_size=K)
+            p_fn = lambda *s: leaf_mt.plain_leaf_intersect(*rays, *s, lb, nl, tris, K)
+        else:
+            k_fn = lambda *s: leaf_mt.leaf_any(*rays, *s, lb, nl, tris, leaf_size=K)
+            p_fn = lambda *s: leaf_mt.plain_leaf_any(*rays, *s, lb, nl, tris, K)
+        b4_work = leaf_mt.count_work(lb, nl, W, K, mode)
+        ns, lc = h["node_steps"], h["leaf_cap"]
+        scan_work = wave_scan.count_work(bvh, h["scan_in"], ns, lc)
+        scan_fresh = lambda: [dict(h["scan_in"], **{k: h["scan_in"][k].clone()
+                                                    for k in wave_scan.STATE_KEYS})]
+        for name, fn, pfn, setup, work, err in (
+                ("leaf_mt", k_fn, p_fn, fresh, b4_work,
+                 r["t_max_abs"] if closest else float(r["b4_mismatch"] > 0)),
+                ("wave_scan", lambda s: wave_scan.node_scan(bvh, s, ns, lc),
+                 lambda s: wave_scan.plain_node_scan(bvh, s, ns, lc), scan_fresh,
+                 scan_work, float(r["scan_mismatch"] > 0))):
+            k_ms = _time_ms(fn, runs=20, setup=setup, ahead=True)
+            p_ms = _time_ms(pfn, runs=PLAIN_RUNS, warmup=False, setup=setup)
+            t_ops = work["ops"]["f32"] / PEAK_OPS["f32"]
+            t_bytes = work["bytes"] / PEAK_BYTES
+            b_ms = max(t_ops, t_bytes) * 1e3
+            out[(name, sname, mode)] = dict(
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err)
+            print(f"time {name} {mode:7s} {sname:7s} wave {h['wave']} of {T} tiles: "
+                  f"kernel {k_ms:.5f} ms, plain {p_ms:.3f} ms, bound {b_ms:.6f} ms "
+                  f"({out[(name, sname, mode)]['bound_by']}: {json.dumps(work)}), "
+                  f"bound / kernel {100 * b_ms / k_ms:.2f}% [{card}]", flush=True)
     return out
+
+
+def _wave_level_paths(scene, bvh, sets):
+    """The fused level's paths the main path does not take, against the
+    plain level (one wave, then 30): tiles that do not all fit at once (the
+    bounce and shadow sets together, 2,048 tiles > 132 blocks x 8, so each
+    wave loops over them with their state in device memory), and a node
+    table too large for shared memory (the bench triangles' classic BVH with
+    4 triangles a leaf, read through the read-only path). State bit-equal."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.bvh.builder import build_bvh
+    from physically_based_ray_tracer_tpu_torch.ops import wave_level
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    o, d, tm = (torch.cat([a, b]) for a, b in zip(sets["bounce"], sets["shadow"]))
+    tri = torch.stack([scene.tri_v0, scene.tri_v0 + scene.tri_e1,
+                       scene.tri_v0 + scene.tri_e2], 1).cpu().numpy()
+    small_leaves = build_bvh(tri, leaf_size=4).to(o.device)
+    for name, tree, K, n, smem in ((f"{o.shape[0] // 128} tiles", bvh, 16, o.shape[0], True),
+                                   (f"{small_leaves.n_nodes}-node table", small_leaves, 4,
+                                    WAVE_RAYS, False)):
+        lo, hi = tp._scene_bounds(tree)
+        perm = tp.morton_order(o[:n], d[:n], lo, hi)
+        to, td, (ttm,), _, _ = tp._pad_tiles(o[:n][perm], d[:n][perm], [tm[:n][perm]], 128)
+        for closest in (True, False):
+            st = tp._wave_state(to, td, ttm, 48, closest)
+            kw = dict(closest=closest, node_steps=8, leaf_cap=4, leaf_size=K, min_active=0)
+            for max_waves in (1, 30):
+                want = wave_level.plain_run_level(tree, st, max_waves=max_waves, **kw)
+                got = {k: v.clone() for k, v in st.items()}
+                wave_level.run_level(tree, got, max_waves=max_waves, **kw)
+                torch.cuda.synchronize()
+                bad = [k for k in wave_level.LEVEL_KEYS["closest" if closest else "any"]
+                       if not torch.equal(_bits(got[k]), _bits(want[k]))]
+                print(f"  fused level, {name}, closest={closest}, {max_waves} waves: launch "
+                      f"{wave_level.LAST_LAUNCH}, state differs in {bad}", flush=True)
+                _check(not bad, f"fused level, {name}: state differs from plain_run_level")
+                _check(wave_level.LAST_LAUNCH["smem_nodes"] == smem,
+                       f"fused level, {name}: node table placement")
+
+
+def _wave_sync_free(bvh, sets):
+    """One sorted wave-engine call per mode (bounce rays) under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must not synchronise,
+    and it launches the fused kernel once per cascade level and nothing
+    else of the wave engine."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_level, wave_scan
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    o, d, tm = sets["bounce"]
+    for mode in ("closest", "any"):
+        _wave_calls(bvh, o, d, tm, mode)   # warm-up: loads the library, makes the counters
+        torch.cuda.synchronize()
+        for m in (tp, leaf_mt, wave_scan):
+            m.reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _wave_calls(bvh, o, d, tm, mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        launched = dict(wave_level.LAUNCHES)
+        print(f"  wave engine {mode} under sync debug mode 'error': no sync; levels "
+              f"{tp.LEVELS[mode]}, fused launches {launched}, B4 {leaf_mt.LAUNCHES}, scan "
+              f"{wave_scan.LAUNCHES}", flush=True)
+        _check(launched[mode] == tp.LEVELS[mode] > 0 and sum(launched.values())
+               == launched[mode], f"wave {mode}: not one fused launch per level")
+        _check(sum(leaf_mt.LAUNCHES.values()) + wave_scan.LAUNCHES["scan"] == 0,
+               f"wave {mode}: a standalone wave kernel ran")
 
 
 def _wave_vs_b1(scene_w, dbvh, sets, card):
     """The whole wave engine (through its sorted wrappers) vs B1 on the same
-    rays; prints the rates, waves and launches of each call."""
+    rays; prints the rates, levels, fused launches and waves of each call."""
     import torch
-    from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, trace, wave_scan
+    from physically_based_ray_tracer_tpu_torch.ops import trace, wave_level, wave_scan
     from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
     bvh = scene_w.bvh
     for sname, (o, d, tm) in sets.items():
         calls = {}
         for mode in ("closest", "any"):
-            for m in (leaf_mt, wave_scan, tp):
-                m.reset_counts()
+            tp.reset_counts()
             t0 = time.perf_counter()
-            if mode == "closest":
-                res = tp.sorted_closest(tp.intersect_closest_wave, bvh, o, d, tm)
-            else:
-                res = tp.sorted_any(tp.intersect_any_wave, bvh, o, d, tm)
+            res = _wave_calls(bvh, o, d, tm, mode)
             torch.cuda.synchronize()
-            calls[mode] = (res, (time.perf_counter() - t0) * 1e3, tp.WAVES[mode],
-                           leaf_mt.LAUNCHES[mode], wave_scan.LAUNCHES["scan"])
+            calls[mode] = (res, (time.perf_counter() - t0) * 1e3, tp.collect_waves()[mode],
+                           tp.LEVELS[mode], wave_level.LAUNCHES[mode])
         hw, occ_w = calls["closest"][0], calls["any"][0]
         h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
         occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
@@ -651,10 +871,11 @@ def _wave_vs_b1(scene_w, dbvh, sets, card):
                  t_max_rel=float(((hw.t - h1.t).abs() / h1.t.abs())[both].max()),
                  occ_mismatch=float((occ_w != occ1).float().mean()))
         print(f"  wave vs B1 {sname}: {json.dumps(r)}", flush=True)
-        for mode, (_, ms, waves, b4, scans) in calls.items():
-            print(f"  wave engine {mode:7s} {sname:7s} {N_RAYS} rays: {ms:.1f} ms host "
-                  f"clock, {waves} waves, {b4} B4 + {scans} scan launches [{card}]",
+        for mode, (_, ms, waves, levels, fused) in calls.items():
+            print(f"  wave engine {mode:7s} {sname:7s} {N_RAYS} rays: {ms:.2f} ms host "
+                  f"clock, {waves} waves, {levels} levels, {fused} fused launches [{card}]",
                   flush=True)
+            _check(fused == levels > 0, f"{sname} {mode}: not one fused launch per level")
         _check(r["found_mismatch"] <= WAVE_VS_B1, f"{sname}: wave vs B1 found mismatch")
         _check(r["same_prim"] >= WAVE_SAME_PRIM, f"{sname}: wave vs B1 prim agreement")
         _check(r["occ_mismatch"] <= WAVE_VS_B1, f"{sname}: wave vs B1 occlusion mismatch")
@@ -694,7 +915,7 @@ def main() -> int:
     sys.path.insert(0, root)
     from physically_based_ray_tracer_tpu_torch import RenderConfig
     from physically_based_ray_tracer_tpu_torch.ops import (_build, leaf_mt, trace, trace_bf16,
-                                                          trace_rows, wave_scan)
+                                                          trace_rows, wave_level, wave_scan)
     from physically_based_ray_tracer_tpu_torch.ops import traverse_packet
     from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
     from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
@@ -705,7 +926,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = _smi()
     print(f"card: {card}", flush=True)
-    engines = (trace, trace_bf16, trace_rows, leaf_mt, wave_scan)
+    engines = (trace, trace_bf16, trace_rows, leaf_mt, wave_scan, wave_level)
 
     # 1. build
     with _Phase("build"):
@@ -717,15 +938,26 @@ def main() -> int:
                   flush=True)
         _check(_build.load("traverse_rows").pbrt_trace_rows_stack_cap()
                == trace_rows.STACK_CAP, "B3's stack cap differs from trace_rows.STACK_CAP")
-        # B1's and B2's registers, stack frame (local memory) and spills per
-        # kernel function: ptxas's own lines, demangled where c++filt exists
-        for name in ("traverse_f32", "traverse_bf16"):
+        _check(_build.load("wave_level").pbrt_wave_level_threads() == wave_level.THREADS,
+               "the fused level's block differs from wave_level.THREADS")
+        # B1's, B2's and the fused level's registers, stack frame (local
+        # memory) and spills per kernel function: ptxas's own lines,
+        # demangled where c++filt exists
+        for name in ("traverse_f32", "traverse_bf16", "wave_level"):
             lines = "\n".join(ln for ln in _build.BUILD_INFO[name]["log"].splitlines()
                               if any(k in ln for k in PTXAS_KEYS))
             if shutil.which("c++filt"):
                 lines = subprocess.run(["c++filt"], input=lines, capture_output=True,
                                        text=True, check=True, timeout=60).stdout
             print(f"ptxas {name}:\n{lines}", flush=True)
+        level_use = _ptxas_usage(_build.BUILD_INFO["wave_level"]["log"])
+        print(f"wave_level kernels (registers, stack frame, spill bytes): "
+              f"{json.dumps(level_use)}", flush=True)
+        # (a library reused from an earlier build has no log to read)
+        _check(len(level_use) == 4 or not level_use, "wave_level: four instantiations")
+        _check(all(u["spill_bytes"] == 0 and u["registers"] <= 64
+                   for u in level_use.values()),
+               "wave_level: ptxas reports spills or more than 64 registers")
 
     # 1b. the packed bf16x2 operations of B2's sweep, over all operand pairs
     with _Phase("bf16x2 exhaustive check"):
@@ -868,9 +1100,13 @@ def main() -> int:
                                              trace_bf16.truncated_rays(dev))),
                "rays truncated by a counting launch")
 
-    # 10a-b. the wave engine's kernels vs plain, the wave engine vs B1
-    with _Phase("wave: B4 and scan kernel vs plain, times"):
-        wave_k = _wave_kernel_checks(scene_w.bvh, sets, card)
+    # 10a-b. the wave engine's kernels vs plain, no sync, the wave engine vs B1
+    with _Phase("wave: fused level, B4 and scan kernel vs plain, times"):
+        wave_k = _wave_level_checks(scene_w.bvh, sets, card)
+    with _Phase("wave: the fused level's other paths"):
+        _wave_level_paths(scene2, scene_w.bvh, sets)
+    with _Phase("wave: no host sync"):
+        _wave_sync_free(scene_w.bvh, sets)
     with _Phase("wave engine vs B1"):
         _wave_vs_b1(scene_w, scene2.dense, sets, card)
 
@@ -889,7 +1125,8 @@ def main() -> int:
                "the bf16 main path did not launch both B2 modes")
         _check(plain16 == 0, "the bf16 main path called a plain version")
         _check(sum(counts["trace_rows"][0].values()) == 0, "the bf16 path launched B3")
-        _check(sum(counts["leaf_mt"][0].values()) + counts["wave_scan"][0]["scan"] == 0,
+        _check(sum(counts["leaf_mt"][0].values()) + counts["wave_scan"][0]["scan"]
+               + sum(counts["wave_level"][0].values()) == 0,
                "the bf16 path launched a wave kernel")
         _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
                "bf16 image not finite or of the wrong shape")
@@ -958,20 +1195,24 @@ def main() -> int:
                == ("mt", 128, 8, 48, 16, True), "the wave config's defaults")
         r_wave = Renderer(scene_w, cam, cfg_wave, device=dev)
         traverse_packet.reset_counts()
-        first_wave, img, warm, ms, counts = _frame(r_wave, 1, engines)
-        waves = dict(traverse_packet.WAVES)
+        first_wave, img, warm, ms, counts = _frame(r_wave, 3, engines)
+        waves = traverse_packet.collect_waves()
+        levels = dict(traverse_packet.LEVELS)
+        launches_level = counts["wave_level"][0]
         launches_b4, launches_scan = counts["leaf_mt"][0], counts["wave_scan"][0]
         plain_wave = sum(sum(c[1].values()) for c in counts.values())
         others = {k: counts[k][0] for k in ("trace", "trace_bf16", "trace_rows")}
-        print(f"frame 1280x720 4 bounces AA wave: warm-up {warm:.2f} s, "
-              f"{ms[0]:.2f} ms [{card}]", flush=True)
-        print(f"main path (2 frames): waves {waves}, B4 launches {launches_b4}, scan "
-              f"launches {launches_scan}, B1-B3 launches {others}, plain-version calls "
-              f"{plain_wave}", flush=True)
-        _check(launches_b4["closest"] > 0 and launches_b4["any"] > 0,
-               "the wave main path did not launch both B4 modes")
-        _check(launches_scan["scan"] == sum(waves.values()) > 0,
-               "the wave main path did not launch the scan kernel once a wave")
+        print(f"frame 1280x720 4 bounces AA wave: warm-up {warm:.2f} s, median "
+              f"{statistics.median(ms):.2f} ms over {ms} [{card}]", flush=True)
+        print(f"main path (4 frames): waves {waves}, levels {levels}, wave_level launches "
+              f"{launches_level}, B4 launches {launches_b4}, scan launches {launches_scan}, "
+              f"B1-B3 launches {others}, plain-version calls {plain_wave}", flush=True)
+        _check(launches_level["closest"] > 0 and launches_level["any"] > 0,
+               "the wave main path did not launch the fused level in both modes")
+        _check(launches_level == levels, "the wave main path: not one fused launch per level")
+        _check(waves["closest"] > 0 and waves["any"] > 0, "the wave main path ran no wave")
+        _check(sum(launches_b4.values()) + launches_scan["scan"] == 0,
+               "the wave main path launched the standalone B4 or scan kernel")
         _check(all(sum(v.values()) == 0 for v in others.values()),
                "the wave main path launched B1, B2 or B3")
         _check(plain_wave == 0, "the wave main path called a plain version")
@@ -1015,8 +1256,10 @@ def main() -> int:
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does
                 kernels[-1]["union_bound_ms"] = union[(sname, mode)]
-    # the wave kernels, timed on the heaviest checked wave of the sets the
-    # other kernels report; the scan kernel on the closest-hit run
+    # B4 and the scan kernel, timed on the heaviest checked wave of the sets
+    # the other kernels report (the scan on the closest-hit run); the wave
+    # main path now runs them inside the fused level, so their launches
+    # there are 0
     for name, mode, launches in (("leaf_mt", "closest", launches_b4["closest"]),
                                  ("leaf_mt", "any", launches_b4["any"]),
                                  ("wave_scan", "closest", launches_scan["scan"])):
@@ -1024,10 +1267,23 @@ def main() -> int:
         w = wave_k[(name, report_sets[mode], mode)]
         entry = {"name": f"{name}_{mode}" if name == "leaf_mt" else name, "route": "cuda",
                  "source": src, "replaces": replaces, "launches": launches, **w,
-                 "library_ms": None}
+                 "library_ms": None, "main_path": "inside wave_level"}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
+    # the fused level, timed over the levels of each mode's heaviest call
+    src, replaces = KERNELS["wave_level"]
+    for mode in ("closest", "any"):
+        (sname, w), = [(s_, v) for (k, s_, m), v in wave_k.items()
+                       if k == "wave_level" and m == mode and v["heaviest"]]
+        kernels.append({"name": f"wave_level_{mode}", "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches_level[mode],
+                        **{k: v for k, v in w.items() if k != "heaviest"}, "set": sname,
+                        "library_ms": None, "port_only": True,
+                        "registers": max((u["registers"] for u in level_use.values()),
+                                         default=None),
+                        "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())
+                        if level_use else None})
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)

@@ -24,7 +24,10 @@
 // triangles once in shared memory (a (9, 128) block, column l*K + k; rounds of
 // 128/K leaves when more are buffered), so each triangle row is read from
 // device memory once per tile instead of once per ray, and every thread then
-// reads the same shared word (a broadcast). A tile with no buffered leaf
+// reads the same shared word (a broadcast): sweep_leaves of wave_common.cuh,
+// which the fused level kernel wave_level.cu runs too (the wave engine's
+// dense="mt" path; this kernel stays the counterpart of
+// leaf_intersect_pallas, ops/leaf_mt.py). A tile with no buffered leaf
 // exits at once. The arithmetic is mt_f32 of traverse_common.cuh, whose
 // expressions are the reference's mt_dense one for one (the reciprocal of a
 // rejected det is 1 instead of 0, which never reaches an accept), compiled
@@ -37,7 +40,7 @@
 // DMA and its semaphore (shared-memory staging), and the rays-on-lanes
 // (3, W) layout (a thread holds its own ray).
 
-#include "traverse_common.cuh"
+#include "wave_common.cuh"
 
 namespace {
 
@@ -58,7 +61,6 @@ leaf_mt_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   const int tile = blockIdx.x;
   const int n = min(nleaf[tile], leaf_cap);
   if (n <= 0) return;   // the same for every thread of the block
-  const int* codes = leafbuf + (size_t)tile * leaf_cap;
   const size_t i = (size_t)tile * width + threadIdx.x;
   // the slab reciprocals are unused here
   const Ray r{orig[3 * i], orig[3 * i + 1], orig[3 * i + 2],
@@ -72,41 +74,11 @@ leaf_mt_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   } else {
     occ = occ_io[i] != 0;
   }
-  const int K = leaf_size;               // columns per leaf (1..LEAF_W)
-  const int per_round = LEAF_W / K;
-  for (int l0 = 0; l0 < n; l0 += per_round) {
-    const int l1 = min(n, l0 + per_round);
-    // stage: consecutive threads read consecutive floats of the rows
-    for (int j = threadIdx.x; j < (l1 - l0) * K * 9; j += blockDim.x) {
-      const int col = j / 9, comp = j - col * 9;
-      int first, count;
-      decode_leaf(codes[l0 + col / K], first, count);
-      const int k = col % K;
-      if (k < count) {
-        const int row = min(first + k, n_prims - 1);
-        tri[comp * LEAF_W + col] = tris[(size_t)row * 9 + comp];
-      }
-    }
-    __syncthreads();
-    for (int l = l0; l < l1; ++l) {
-      int first, count;
-      decode_leaf(codes[l], first, count);
-      count = min(count, K);
-      const float* s = tri + (l - l0) * K;
-      for (int k = 0; k < count; ++k) {
-        float tt, uu, vv;
-        const bool ok = mt_f32(r, tri_rows(s + k), tt, uu, vv);
-        if (CLOSEST) {
-          if (ok && tt < fminf(tb, tm)) {
-            tb = tt; ub = uu; vb = vv; pb = first + k;
-          }
-        } else {
-          occ = occ || (ok && tt < tm);
-        }
-      }
-    }
-    __syncthreads();
-  }
+  const int per_round = LEAF_W / leaf_size;   // leaf_size: 1..LEAF_W
+  sweep_leaves<CLOSEST>(r, tm, tb, ub, vb, pb, occ, leafbuf + (size_t)tile * leaf_cap, n,
+                        tris, n_prims, leaf_size, per_round,
+                        (n + per_round - 1) / per_round, tri, LEAF_W, threadIdx.x,
+                        blockDim.x, 0, 1, true, NoMerge{});
   if (CLOSEST) {
     t_io[i] = tb; u_io[i] = ub; v_io[i] = vb; prim_io[i] = pb;
   } else {

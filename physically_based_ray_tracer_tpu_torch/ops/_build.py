@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source of ``csrc/`` (``traverse_f32.cu``, kernel B1;
 ``traverse_bf16.cu``, kernel B2; ``traverse_rows.cu``, kernel B3;
-``leaf_mt.cu``, kernel B4; ``wave_scan.cu``, the wave engine's node scan)
+``leaf_mt.cu``, kernel B4; ``wave_scan.cu``, the wave engine's node scan;
+``wave_level.cu``, the wave engine's fused cascade level)
 into a shared library of its own with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The libraries go to ``build/torch_kernels/`` at the
 repository root, each named by a hash of its source, the shared headers
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "leaf_mt",
-                        "wave_scan")}
+                        "wave_scan", "wave_level")}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # exact IEEE arithmetic (no fast math, no FMA contraction) so that the
 # kernels match their plain PyTorch versions bit for bit
@@ -77,6 +78,12 @@ _SIGNATURES = {
         "pbrt_wave_scan_error_string": ([_i], ctypes.c_char_p),
         "pbrt_wave_scan": ([_p, _p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p, _p, _p,
                             _i, _i, _i, _i, _p, _p], _i),
+    },
+    "wave_level": {
+        "pbrt_wave_level_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_wave_level_threads": ([], _i),
+        "pbrt_wave_level": ([_p, _p, _i, *[_p] * 18, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                             _p, _p, _p, _i, _p, _p, _p], _i),
     },
 }
 
@@ -142,9 +149,15 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all()
-    lib = ctypes.CDLL(str(library_path(name)))
+    lib = bind(ctypes.CDLL(str(library_path(name))), name)
+    _LIBS[name] = lib
+    return lib
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Sets the argument and result types of library ``name``'s entry points
+    on ``lib`` (also a library built from a variant of its source)."""
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
-    _LIBS[name] = lib
     return lib

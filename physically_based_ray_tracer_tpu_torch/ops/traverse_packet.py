@@ -6,19 +6,23 @@ conservative interval test of its origin box and direction bounds. The
 engine iterates WAVES:
 
 * ``node_steps`` node-only steps per tile, buffering up to ``leaf_cap``
-  leaves (``ops/wave_scan.py``: one launch of ``csrc/wave_scan.cu`` per wave
-  on the card);
+  leaves (``ops/wave_scan.py``);
 * one dense phase testing every ray of a tile against every triangle of
-  its buffered leaves (``ops/leaf_mt.py``: kernel B4, ``csrc/leaf_mt.cu``,
-  for ``dense="mt"``; ``dense="woop"`` runs the Woop transform in torch);
-* the per-tile pruning distance and the active flags are updated in torch,
-  and the loop condition is read on the host (one sync a wave).
+  its buffered leaves (kernel B4's function, ``ops/leaf_mt.py``, for
+  ``dense="mt"``; ``dense="woop"`` runs the Woop transform in torch);
+* the per-tile pruning distance and the active flags are updated.
 
 An adaptive shrink cascade compacts the still-active tiles into a
 1/``shrink``-wide array as soon as they fit, so total work tracks the sum
-of per-tile visits, not T x (slowest tile). The loops over waves and
-levels are Python loops: their bounds depend on the host-read condition
-and on shapes only. ``WAVES`` counts the waves run per mode.
+of per-tile visits, not T x (slowest tile). With ``dense="mt"`` a level's
+waves run in ``ops/wave_level.py``: on the card one launch of the fused
+kernel ``csrc/wave_level.cu`` per level, whose loop test runs on the card
+(an engine call then has no host sync; the compaction between levels is
+torch and needs none), on the CPU the plain per-wave loop. ``dense="woop"``
+keeps the per-wave loop here: a launch of the scan kernel, the Woop phase
+in torch and a host-read loop test per wave. ``WAVES`` (the dict of
+``ops/wave_level.py``; on the card read through ``collect_waves``) counts
+the waves run per mode, ``LEVELS`` the levels.
 
 Sorting rays by direction octant + origin Morton code (``sorted_closest``,
 ``sorted_any``) makes tiles coherent. The JAX module's leaf math
@@ -35,20 +39,29 @@ import torch
 
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
-from physically_based_ray_tracer_tpu_torch.ops import leaf_mt, wave_scan
+from physically_based_ray_tracer_tpu_torch.ops import wave_level, wave_scan
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
 from physically_based_ray_tracer_tpu_torch.ops.leaf_mt import (_gather_rows,
                                                                leaf_columns,
                                                                ordered_take)
 from physically_based_ray_tracer_tpu_torch.ops.trace import morton_key
+from physically_based_ray_tracer_tpu_torch.ops.wave_level import WAVES, _tile_update
 from physically_based_ray_tracer_tpu_torch.ops.wave_scan import BIG, DONE
 
-WAVES = {"closest": 0, "any": 0}
+LEVELS = {"closest": 0, "any": 0}
 
 
 def reset_counts() -> None:
-    for k in WAVES:
-        WAVES[k] = 0
+    """Zeroes ``WAVES``, ``LEVELS`` and ``ops/wave_level.py``'s counts."""
+    wave_level.reset_counts()
+    for k in LEVELS:
+        LEVELS[k] = 0
+
+
+def collect_waves() -> dict:
+    """The waves run per mode since ``reset_counts``, on every device
+    (synchronises)."""
+    return wave_level.collect_waves()
 
 
 def _tile_bounds(o, d):
@@ -163,18 +176,9 @@ def _wave_state(o_t, d_t, tmax_t, stack_depth, closest):
     return st
 
 
-def _dense_phase(bvh, st, leafbuf, nleaf, *, closest, leaf_size, dense):
-    """The wave's dense phase: every ray of a tile against the triangles of
-    its buffered leaves (B4 for dense="mt")."""
-    if dense == "mt":
-        if closest:
-            leaf_mt.leaf_intersect(st["o_t"], st["d_t"], st["tmax"], st["t"], st["u"],
-                                   st["v"], st["prim"], leafbuf, nleaf, bvh.tris,
-                                   leaf_size=leaf_size)
-        else:
-            leaf_mt.leaf_any(st["o_t"], st["d_t"], st["tmax"], st["occ"], leafbuf,
-                             nleaf, bvh.tris, leaf_size=leaf_size)
-        return st
+def _woop_phase(bvh, st, leafbuf, nleaf, *, closest, leaf_size):
+    """The wave's dense phase for dense="woop": every ray of a tile against
+    the triangles of its buffered leaves, through their Woop transforms."""
     slots, col_ok = leaf_columns(leafbuf, nleaf, leaf_size)
     if closest:
         t_clip = torch.minimum(st["t"], st["tmax"])
@@ -190,32 +194,27 @@ def _dense_phase(bvh, st, leafbuf, nleaf, *, closest, leaf_size, dense):
     return st
 
 
-def _tile_update(st, *, closest):
-    """After the dense phase: the tiles' pruning distance and, in occlusion
-    mode, the retirement of tiles whose rays are all occluded or dead."""
-    if closest:
-        st["t_tile"] = torch.amax(torch.minimum(st["t"], st["tmax"]), dim=1)
-    else:
-        occ, tmax = st["occ"], st["tmax"]
-        all_occ = torch.all(occ | (tmax <= 0.0), dim=1)
-        st["active"] = st["active"] & ~all_occ
-        st["t_tile"] = torch.amax(torch.where(~occ, tmax, 0.0), dim=1)
-    return st
-
-
 def _wave_run(bvh, st, *, closest, node_steps, leaf_cap, leaf_size, dense,
               min_active):
     """while(any active [and > min_active tiles active]): node scan + dense.
 
     ``min_active`` is the adaptive-cascade exit: once at most that many
     tiles remain active, control returns so the caller can compact them
-    into a narrower array (guaranteed to fit) and keep iterating there."""
+    into a narrower array (guaranteed to fit) and keep iterating there.
+    dense="mt": one ``wave_level.run_level`` launch on the card, the plain
+    loop on the CPU; dense="woop": the per-wave loop below."""
     mode = "closest" if closest else "any"
+    LEVELS[mode] += 1
+    if dense == "mt":
+        kw = dict(closest=closest, node_steps=node_steps, leaf_cap=leaf_cap,
+                  leaf_size=leaf_size, min_active=min_active)
+        if st["cur"].device.type == "cpu":
+            return wave_level.plain_run_level(bvh, st, **kw)
+        return wave_level.run_level(bvh, st, **kw)
     while (int(st["active"].sum()) > min_active if min_active
            else bool(st["active"].any())):
         _, _, _, nleaf, leafbuf, _ = wave_scan.node_scan(bvh, st, node_steps, leaf_cap)
-        st = _dense_phase(bvh, st, leafbuf, nleaf, closest=closest,
-                          leaf_size=leaf_size, dense=dense)
+        st = _woop_phase(bvh, st, leafbuf, nleaf, closest=closest, leaf_size=leaf_size)
         st = _tile_update(st, closest=closest)
         WAVES[mode] += 1
     return st

@@ -12,10 +12,12 @@ each, once to warm up, 3 times unprofiled (the median wall time: run it in
 two checkouts in turns to compare frames), then once under
 ``torch.profiler``. Prints per engine the frame's wall times, the summed device time of all kernels and of the
 traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``, B3
-``traverse_rows_kernel``, B4 ``leaf_mt_kernel`` and the wave engine's
-``wave_scan_kernel``) with their launch counts, the waves the wave engine
-ran, the device-busy share of the wall time and the kernel launch count,
-and the top 30 operators by device time.
+``traverse_rows_kernel``, B4 ``leaf_mt_kernel``, the wave engine's
+``wave_scan_kernel`` and its fused level ``wave_level_kernel``) with their
+launch counts, the waves and levels the wave engine ran, the device-busy
+share of the wall time and the kernel launch count, and the top 30
+operators by device time. It also runs from an older checkout of the port
+(copy it there), whose wave engine may lack the fused level.
 """
 
 from __future__ import annotations
@@ -61,6 +63,11 @@ def _profile(label, scene, cam, cfg, dev, card):
     b3 = [t for n, t in kernels if "traverse_rows_kernel" in n]
     b4 = [t for n, t in kernels if "leaf_mt_kernel" in n]
     scan = [t for n, t in kernels if "wave_scan_kernel" in n]
+    level = [t for n, t in kernels if "wave_level_kernel" in n]
+    # the wave engine's counts (an older checkout counts waves on the host only)
+    waves = (traverse_packet.collect_waves() if hasattr(traverse_packet, "collect_waves")
+             else dict(traverse_packet.WAVES))
+    levels = dict(getattr(traverse_packet, "LEVELS", {}))
     print(f"card: {card}")
     print(f"frame 1280x720 {label}: unprofiled wall median {statistics.median(plain_ms):.2f} "
           f"ms over {[round(x, 2) for x in plain_ms]}")
@@ -70,7 +77,8 @@ def _profile(label, scene, cam, cfg, dev, card):
           f"B3 {sum(b3) / 1e3:.2f} ms ({len(b3)} launches), "
           f"B4 {sum(b4) / 1e3:.2f} ms ({len(b4)} launches), "
           f"scan {sum(scan) / 1e3:.2f} ms ({len(scan)} launches), "
-          f"waves {dict(traverse_packet.WAVES)}, "
+          f"wave_level {sum(level) / 1e3:.2f} ms ({len(level)} launches), "
+          f"waves {waves}, levels {levels}, "
           f"device busy {100 * dev_ms / wall_ms:.1f}%")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 

@@ -559,11 +559,14 @@ def test_check_supported_wave(wave_scene):
 
 @pytest.mark.cuda
 def test_wave_kernels_vs_plain_on_gpu(wave_scene):
-    """The scan kernel and B4 vs their plain versions over the waves of a
-    wave run, and the engine on the card vs on the CPU (runs where a GPU is
+    """The engine's path on the card, the fused level (``ops/wave_level.py``,
+    one wave a launch), against the plain wave over the waves of a level,
+    and the scan kernel and B4 against their plain versions on each wave's
+    inputs; then the engine on the card vs on the CPU (runs where a GPU is
     present)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
+    from physically_based_ray_tracer_tpu_torch.ops import wave_level
     dev = torch.device("cuda")
     _, ts, _, _ = wave_scene
     bvh = ts.bvh.to(dev)
@@ -574,21 +577,29 @@ def test_wave_kernels_vs_plain_on_gpu(wave_scene):
         st = ttp._wave_state(to, td, ttm, 48, closest)
         keys = ("t", "u", "v", "prim") if closest else ("occ",)
         while bool(st["active"].any()):
-            before = dict(st, **{k: st[k].clone() for k in wave_scan.STATE_KEYS})
-            got = wave_scan.node_scan(bvh, st, 8, 4)
+            before = {k: v.clone() for k, v in st.items()}
+            want = wave_level.plain_run_level(bvh, before, closest=closest, node_steps=8,
+                                              leaf_cap=4, leaf_size=16, min_active=0,
+                                              max_waves=1)
+            wave_level.run_level(bvh, st, closest=closest, node_steps=8, leaf_cap=4,
+                                 leaf_size=16, min_active=0, max_waves=1)
+            for k in wave_level.LEVEL_KEYS["closest" if closest else "any"]:
+                assert torch.equal(st[k], want[k]), k
+            scan_in = {k: v.clone() for k, v in before.items()}
+            got = wave_scan.node_scan(bvh, scan_in, 8, 4)
             for a, b in zip(got, wave_scan.plain_node_scan(bvh, before, 8, 4)):
                 assert torch.equal(a, b)
-            state0 = [st[k].clone() for k in keys]
-            rays = (st["o_t"], st["d_t"], st["tmax"])
+            state0 = [before[k].clone() for k in keys]
+            rays = (before["o_t"], before["d_t"], before["tmax"])
             if closest:
-                leaf_mt.leaf_intersect(*rays, *(st[k] for k in keys), got[4], got[3], bvh.tris)
-                want = leaf_mt.plain_leaf_intersect(*rays, *state0, got[4], got[3], bvh.tris, 16)
+                leaf_mt.leaf_intersect(*rays, *(before[k] for k in keys), got[4], got[3],
+                                       bvh.tris)
+                ref = leaf_mt.plain_leaf_intersect(*rays, *state0, got[4], got[3], bvh.tris, 16)
             else:
-                leaf_mt.leaf_any(*rays, st["occ"], got[4], got[3], bvh.tris)
-                want = (leaf_mt.plain_leaf_any(*rays, *state0, got[4], got[3], bvh.tris, 16),)
-            for k, w in zip(keys, want):
-                assert torch.equal(st[k], w), k
-            ttp._tile_update(st, closest=closest)
+                leaf_mt.leaf_any(*rays, before["occ"], got[4], got[3], bvh.tris)
+                ref = (leaf_mt.plain_leaf_any(*rays, *state0, got[4], got[3], bvh.tris, 16),)
+            for k, w in zip(keys, ref):
+                assert torch.equal(before[k], w), k
         wrap = ttp.sorted_closest if closest else ttp.sorted_any
         fn = ttp.intersect_closest_wave if closest else ttp.intersect_any_wave
         gpu = wrap(fn, bvh, o, d, tmax)

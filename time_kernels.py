@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Times kernels B1 and B2 of two checkouts of the port on one GPU, in turns.
+"""Times kernels B1 and B2 of two checkouts of the port on one GPU, in turns;
+and the fused wave level's block shapes.
 
     python3 time_kernels.py --compare OTHER_ROOT     # OTHER, this, this, OTHER
     python3 time_kernels.py [--root ROOT] --out FILE.json
+    python3 time_kernels.py --wave-blocks            # 1024, 512, 512, 1024
 
 ``--compare`` unpacks nothing itself: OTHER_ROOT is another checkout of the
 repository (e.g. the parent commit, from ``git archive``). It runs one
@@ -26,6 +28,19 @@ CUDA-event runs after a warm-up, each behind a ~1 ms device sleep, so that
 only device time counts. It counts the work of each launch with the
 kernel's counting instantiation and computes the bound as ``chip_smoke.py``
 does, with that checkout's ``chip_smoke.py``. Imports nothing of JAX.
+
+``--wave-blocks`` builds ``csrc/wave_level.cu`` once per block shape of
+``WAVE_BLOCKS`` (its ``THREADS`` constant replaced in a copy of the source;
+the checkout keeps one shape and no switch), prints each build's registers
+and spills, and times each on the levels of the wave engine's sorted calls
+over the first 122,880 rays of ``chip_smoke.py``'s sets (bounce closest,
+shadow any: the sets its kernels line reports), in turns: per call the sum
+of the medians of ``--runs`` CUDA-event runs of each level, each from a
+fresh copy of the level's entry state. It fails if a shape's results
+differ from the kept shape's. Then, for the kept shape, each level's device
+microseconds a wave beside those of the same level run with
+``node_steps=0`` for as many waves (no scan step and no leaf: the fixed cost
+of a wave).
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+WAVE_BLOCKS = (1024, 512)    # the kept block shape first
+WAVE_CALLS = (("bounce", "closest"), ("shadow", "any"))
 L2_FLUSH_BYTES = 128 << 20  # written before each cold run: more than the 50 MB L2
 
 
@@ -179,6 +196,115 @@ def compare(other, runs, out_dir):
     print(json.dumps({"ok": True, "card": card}))
 
 
+def wave_blocks(runs):
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.ops import _build, wave_level
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = chip_smoke._smi()
+    _build.build_all()
+    src = _build.SOURCES["wave_level"].read_text()
+    kept = f"constexpr int THREADS = {WAVE_BLOCKS[0]};"
+    if src.count(kept) != 1:
+        raise SystemExit(f"time_kernels: {kept!r} not found once in wave_level.cu")
+    libs = {}
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    for threads in WAVE_BLOCKS:
+        cu = Path(tmp) / f"wave_level_{threads}.cu"
+        cu.write_text(src.replace(kept, f"constexpr int THREADS = {threads};"))
+        so = Path(tmp) / f"wave_level_{threads}.so"
+        p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                            "-o", str(so), str(cu)], capture_output=True, text=True)
+        if p.returncode != 0:
+            raise SystemExit(f"nvcc failed on {cu.name}:\n{p.stdout}{p.stderr}")
+        use = chip_smoke._ptxas_usage(p.stdout + p.stderr)
+        print(f"wave_level THREADS={threads}: {json.dumps(use)} [{card}]", flush=True)
+        libs[threads] = _build.bind(ctypes.CDLL(str(so)), "wave_level")
+        if libs[threads].pbrt_wave_level_threads() != threads:
+            raise SystemExit(f"the {threads}-thread build reports another shape")
+
+    scene2, cam, _ = build_bench_scene(flatten="auto", device=dev)
+    bvh = build_bench_scene(legacy_bvh=True, device=dev)[0].bvh
+    cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
+                       skybox=False, one_shadow_ray=True, chunk_pixels=65536)
+    sets = chip_smoke._ray_sets(scene2, cam, cfg, dev)
+    levels = {}
+    real = wave_level.run_level
+
+    def record(bvh_, st, **kw):
+        levels[call].append(({k: v.clone() for k, v in st.items()}, kw))
+        return real(bvh_, st, **kw)
+
+    results = {}
+    wave_level.run_level = record
+    try:
+        for call in WAVE_CALLS:
+            sname, mode = call
+            levels[call] = []
+            o, d, tm = (x[:chip_smoke.WAVE_RAYS] for x in sets[sname])
+            results[call] = chip_smoke._wave_calls(bvh, o, d, tm, mode)
+    finally:
+        wave_level.run_level = real
+    times = {(t, c): [] for t in WAVE_BLOCKS for c in WAVE_CALLS}
+    bad = []
+    for threads in (*WAVE_BLOCKS, *reversed(WAVE_BLOCKS)):
+        _build._LIBS["wave_level"] = libs[threads]
+        for call in WAVE_CALLS:
+            ms = 0.0
+            for st0, kw in levels[call]:
+                fresh = lambda: [{k: v.clone() for k, v in st0.items()}]
+                ms += chip_smoke._time_ms(lambda s: wave_level.run_level(bvh, s, **kw),
+                                          runs=runs, setup=fresh, ahead=True)
+            times[(threads, call)].append(ms)
+            got = chip_smoke._wave_calls(bvh, *(x[:chip_smoke.WAVE_RAYS]
+                                                for x in sets[call[0]]), call[1])
+            want = results[call]
+            same = all(torch.equal(a, b) for a, b in zip(
+                got if call[1] == "closest" else [got], want if call[1] == "closest" else [want]))
+            if not same:
+                bad.append(f"THREADS={threads} {call}: results differ")
+    for call in WAVE_CALLS:
+        line = ", ".join(f"THREADS={t}: {' / '.join(f'{x:.4f}' for x in times[(t, call)])} ms"
+                         for t in WAVE_BLOCKS)
+        print(f"wave_level {call[0]} {call[1]}, {len(levels[call])} levels: {line}; "
+              f"{WAVE_BLOCKS[1]} / {WAVE_BLOCKS[0]} "
+              f"{statistics.mean(times[(WAVE_BLOCKS[1], call)]) / statistics.mean(times[(WAVE_BLOCKS[0], call)]):.3f}"
+              f" [{card}]", flush=True)
+    # the fixed cost of a wave, kept shape: each level again with
+    # node_steps=0 (no scan step and no leaf: the barriers, reductions and
+    # the exit test alone) for as many waves as it ran
+    _build._LIBS["wave_level"] = libs[WAVE_BLOCKS[0]]
+    for call in WAVE_CALLS:
+        for st0, kw in levels[call]:
+            fresh = lambda: [{k: v.clone() for k, v in st0.items()}]
+            wave_level.collect_waves()
+            n0 = wave_level.WAVES[call[1]]
+            wave_level.run_level(bvh, *fresh(), **kw)
+            waves = wave_level.collect_waves()[call[1]] - n0
+            full = chip_smoke._time_ms(lambda s: wave_level.run_level(bvh, s, **kw),
+                                       runs=runs, setup=fresh, ahead=True)
+            bare = chip_smoke._time_ms(lambda s: wave_level.run_level(
+                bvh, s, **dict(kw, node_steps=0), max_waves=waves), runs=runs, setup=fresh,
+                ahead=True)
+            print(f"wave_level {call[0]} {call[1]} level of {st0['cur'].shape[0]} tiles, "
+                  f"{waves} waves: {full * 1e3 / waves:.2f} us a wave, with node_steps=0 "
+                  f"{bare * 1e3 / waves:.2f} us a wave [{card}]", flush=True)
+    _build._LIBS.pop("wave_level")
+    if bad:
+        raise SystemExit("time_kernels: " + "; ".join(bad))
+    print(json.dumps({"ok": True, "card": card}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="OTHER_ROOT")
@@ -186,8 +312,11 @@ def main():
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--out")
     ap.add_argument("--out-dir", default=os.path.join(HERE, "build", "time_kernels"))
+    ap.add_argument("--wave-blocks", action="store_true")
     a = ap.parse_args()
-    if a.compare:
+    if a.wave_blocks:
+        wave_blocks(a.runs)
+    elif a.compare:
         compare(a.compare, a.runs, a.out_dir)
     elif a.out:
         turn(a.root, a.runs, a.out)
