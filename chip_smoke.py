@@ -18,14 +18,20 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
    the kernel build times and ptxas logs, and again, per kernel function of
-   B1, B2 and the fused level, ptxas's lines on its registers, stack frame
-   (local memory) and spill bytes (demangled by ``c++filt`` where the host
-   has it); the fused level's four instantiations must use <= 64 registers
-   and spill nothing;
+   B1, B2, B3 and the fused level, ptxas's lines on its registers, stack
+   frame (local memory) and spill bytes (demangled by ``c++filt`` where the
+   host has it); the fused level's four instantiations must use <= 64
+   registers and spill nothing, and B3's (four, and its order-key kernel)
+   must spill nothing;
 1b. the exhaustive check of B2's packed bf16x2 operations
    (``trace_bf16.packed_op_mismatches``): the sweep's mul, add, sub, min, max
    and abs helpers over all 2^32 bf16 operand pairs against f32 arithmetic
-   rounded to bf16, gated at 0 mismatches for every operation;
+   rounded to bf16, gated at 0 mismatches for every operation; and of B3's
+   order key (``trace_rows.order_key_mismatches``), the integer image its
+   nearer-child vote takes the minimum of: the kernel's keys of every
+   float32 that is not a NaN, in chunks, against torch's float comparison
+   of each pair of neighbours in float order (-0.0 == +0.0) and against the
+   plain key, gated at 0 mismatches;
 2. B1 and B3 vs their plain version (one function, computed once per table
    and set): on the benchmark scene (two-level, as flatten="auto" builds it,
    and flattened to one level) and three 131,072-ray sets (primary rays of
@@ -34,8 +40,9 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    each kernel through the main path's sorted wrappers: equal found masks,
    t within 1e-6 relative, equal prim/instance except where the plain
    version sees a t-tie, equal occlusion masks, no truncated ray; and B3 vs
-   B1: t bit-equal wherever both found a hit, equal occlusion. Prints the
-   tie counts;
+   B1: t bit-equal wherever both found a hit, equal occlusion (prim and
+   instance differ from B1's only on t-ties: held against the plain
+   version). Prints the tie counts;
 3. B2 vs its plain version on the same tables and rays, both run on the
    main path's co-sorted rays (the sort wrappers' order, which sets the
    sweep lanes): equal found masks, winner keys, instances and decoded prims,
@@ -68,8 +75,11 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    peaks, f32 at 67 TFLOP/s and bf16 at 133.8 TFLOP/s outside the tensor
    cores, and bytes / 3.35 TB/s; the bytes count the tables each kernel
    reads). B3's bound is the work of its function, B1's count on the same
-   rays; the work of its union walk is reported beside it
-   (``union_bound_ms``). B1's and B2's counted node steps, triangle tests or
+   rays; the work its schedule does (the shared phase's node steps once per
+   lane of the warp, every lane's own tests) and the warps that split are
+   printed for every set and mode and reported beside it for the kernels
+   line's sets (``schedule_bound_ms``, ``split_warps``). B1's and B2's
+   counted node steps, triangle tests or
    band candidates and leaf visits must equal those of the walk that took
    one step per iteration (``STEP_WALK_WORK``): batching leaf visits keeps
    every ray's nodes and leaves;
@@ -467,9 +477,9 @@ def _bound(eng, mode, dbvh, n_rays, ops):
     ``eng``: the larger of the operations ``ops`` (by type) over PEAK_OPS and
     the bytes it must move (each ray input read once, each output written
     once, each table the kernel reads read once: B1 its leaf records, B2
-    its band pairs and group boxes, B3 the groups table) over PEAK_BYTES."""
+    its band pairs and group boxes, B3 B1's leaf records) over PEAK_BYTES."""
     leaf = {"f32": (dbvh.leaf_rec,), "bf16": (dbvh.groups_bf2, dbvh.glo),
-            "rows": (dbvh.groups,)}[eng]
+            "rows": (dbvh.leaf_rec,)}[eng]
     tables = (dbvh.nodes16, *leaf, dbvh.inst16)
     nbytes = (n_rays * (RAY_IN_BYTES + OUT_BYTES[(eng, mode)])
               + sum(t.numel() * t.element_size() for t in tables))
@@ -940,10 +950,10 @@ def main() -> int:
                == trace_rows.STACK_CAP, "B3's stack cap differs from trace_rows.STACK_CAP")
         _check(_build.load("wave_level").pbrt_wave_level_threads() == wave_level.THREADS,
                "the fused level's block differs from wave_level.THREADS")
-        # B1's, B2's and the fused level's registers, stack frame (local
-        # memory) and spills per kernel function: ptxas's own lines,
+        # B1's, B2's, B3's and the fused level's registers, stack frame
+        # (local memory) and spills per kernel function: ptxas's own lines,
         # demangled where c++filt exists
-        for name in ("traverse_f32", "traverse_bf16", "wave_level"):
+        for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "wave_level"):
             lines = "\n".join(ln for ln in _build.BUILD_INFO[name]["log"].splitlines()
                               if any(k in ln for k in PTXAS_KEYS))
             if shutil.which("c++filt"):
@@ -958,6 +968,13 @@ def main() -> int:
         _check(all(u["spill_bytes"] == 0 and u["registers"] <= 64
                    for u in level_use.values()),
                "wave_level: ptxas reports spills or more than 64 registers")
+        rows_use = _ptxas_usage(_build.BUILD_INFO["traverse_rows"]["log"])
+        print(f"traverse_rows kernels (registers, stack frame, spill bytes): "
+              f"{json.dumps(rows_use)}", flush=True)
+        _check(len(rows_use) == 5 or not rows_use,
+               "traverse_rows: four kernel instantiations and the order-key kernel")
+        _check(all(u["spill_bytes"] == 0 for u in rows_use.values()),
+               "traverse_rows: ptxas reports spills")
 
     # 1b. the packed bf16x2 operations of B2's sweep, over all operand pairs
     with _Phase("bf16x2 exhaustive check"):
@@ -968,6 +985,14 @@ def main() -> int:
               f"{json.dumps(mism)} ({time.perf_counter() - t0:.2f} s) [{card}]", flush=True)
         _check(set(mism) == set(trace_bf16.PACKED_OPS) and not any(mism.values()),
                f"B2's packed bf16x2 operations differ from the f32 emulation: {mism}")
+    with _Phase("B3 order key, every float32"):
+        t0 = time.perf_counter()
+        keys = trace_rows.order_key_mismatches(dev)
+        print(f"B3 order key vs float order over every non-NaN float32: {json.dumps(keys)} "
+              f"({time.perf_counter() - t0:.2f} s) [{card}]", flush=True)
+        _check(keys["pairs"] == trace_rows.ORDERED_FLOATS - 1
+               and keys["order_mismatch"] == 0 and keys["plain_mismatch"] == 0,
+               f"B3's order key does not keep the float order: {keys}")
 
     cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
@@ -1024,7 +1049,7 @@ def main() -> int:
                                       rep_contract, sname == "primary")
 
     # 5. times at the main path's shapes, on co-sorted rays; 5b. bound inputs
-    times, work, bounds, union = {}, {}, {}, {}
+    times, work, bounds, schedule = {}, {}, {}, {}
     report_sets = {"closest": "bounce", "any": "shadow"}   # the kernels line's
     with _Phase("times"):
         for sname, (o, d, tm) in sets.items():
@@ -1071,8 +1096,8 @@ def main() -> int:
                     w = count(dbvh, o_s, d_s, tm_s, mode == "closest")
                     work[(eng, sname, mode)] = w
                     # B3 computes B1's function: its bound is the work B1
-                    # needs on these rays; its own union walk (every lane of
-                    # a warp counted) is printed and reported beside it
+                    # needs on these rays; the work its schedule does and
+                    # the warps that split are printed and reported beside it
                     need = work[("f32", sname, mode)] if eng == "rows" else w
                     b_ms, b_by, nbytes = _bound(eng, mode, dbvh, N_RAYS, need["ops"])
                     bounds[(eng, sname, mode)] = (b_ms, b_by)
@@ -1084,9 +1109,10 @@ def main() -> int:
                             f"{100 * b_ms / k_ms:.2f}%")
                     if eng == "rows":
                         u_ms = _bound(eng, mode, dbvh, N_RAYS, w["ops"])[0]
-                        union[(sname, mode)] = u_ms
-                        line += (f"; union walk {json.dumps(w)} -> {u_ms:.5f} ms, "
-                                 f"{w['ops']['f32'] / need['ops']['f32']:.2f}x B1's ops")
+                        schedule[(sname, mode)] = (u_ms, w["split_warps"])
+                        line += (f"; its schedule's work {json.dumps(w)} -> {u_ms:.5f} ms, "
+                                 f"{w['ops']['f32'] / need['ops']['f32']:.2f}x B1's ops, "
+                                 f"{w['split_warps']} of {-(-N_RAYS // 32)} warps split")
                     ref = STEP_WALK_WORK.get((eng, sname, mode))
                     if ref is not None:
                         got = (w["node_steps"], w["tri_tests"], w["leaf_visits"])
@@ -1254,8 +1280,10 @@ def main() -> int:
                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": None})
             if eng == "rows":
-                # diagnostic: the bound of the work B3's schedule does
-                kernels[-1]["union_bound_ms"] = union[(sname, mode)]
+                # diagnostic: the bound of the work B3's schedule does, and
+                # the warps that left the shared walk
+                kernels[-1]["schedule_bound_ms"], kernels[-1]["split_warps"] = \
+                    schedule[(sname, mode)]
     # B4 and the scan kernel, timed on the heaviest checked wave of the sets
     # the other kernels report (the scan on the closest-hit run); the wave
     # main path now runs them inside the fused level, so their launches

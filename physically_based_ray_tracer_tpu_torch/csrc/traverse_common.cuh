@@ -1,10 +1,12 @@
 // What the traversal kernels traverse_f32.cu (B1), traverse_bf16.cu (B2) and
 // traverse_rows.cu (B3) share: the ray, the slab test and the f32
-// Möller-Trumbore test, and, for B1 and B2, the node and TLAS phase (one
-// thread per ray, a DenseBVH walked with a per-thread stack, leaves handed to
-// a leaf visitor). B3 walks the same tables once per warp instead. The wave
-// engine's kernels (leaf_mt.cu, B4, and wave_scan.cu) take the f32
-// Möller-Trumbore test and the classic BVH's leaf code from here.
+// Möller-Trumbore test, B1's leaf visitor (B3's too), and the node and TLAS
+// phase (one thread per ray, a DenseBVH walked with a per-thread stack,
+// leaves handed to a leaf visitor). B1 and B2 walk from the root; B3 walks
+// once per warp while its rays are coherent and then hands each lane's state
+// to the same walk. The wave engine's kernels (leaf_mt.cu, B4, and
+// wave_scan.cu) take the f32 Möller-Trumbore test and the classic BVH's leaf
+// code from here.
 //
 // Semantics copied exactly from the TPU kernels (ops/pallas_trace.py and
 // ops/pallas_bf16.py of the JAX package): the sign-preserving 1e-20
@@ -49,7 +51,6 @@
 namespace pbrt {
 
 constexpr int NODE_F = 16;
-constexpr int GROUP_ROWS = 16;
 constexpr int LEAF_W = 128;
 constexpr int INST_F = 16;
 constexpr int RESTORE_ID = (1 << 22) - 1;
@@ -59,9 +60,6 @@ constexpr int DONE = 0x7FFFFFFF;
 constexpr int STACK_CAP = 64;
 constexpr int BLOCK = 128;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-// work counters of the counting instantiations: node steps, triangle tests,
-// leaf visits (summed over rays; B3: over warps, times 32 lanes)
-constexpr int N_COUNTERS = 3;
 // the classic BVH's leaf code (bvh/types.py, leaf_mt.cu and wave_scan.cu):
 // c < 0 is a leaf, m = -(c + 1), first slot m >> LEAF_COUNT_BITS, count
 // m & LEAF_COUNT_MASK
@@ -111,13 +109,6 @@ struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-// the triangle in slot s of a leaf group or a staged block: rows 0..8 at
-// stride LEAF_W (B3 reads the groups table, B4 its shared-memory block)
-__device__ __forceinline__ Tri tri_rows(const float* __restrict__ s) {
-  return Tri{s[0 * LEAF_W], s[1 * LEAF_W], s[2 * LEAF_W], s[3 * LEAF_W], s[4 * LEAF_W],
-             s[5 * LEAF_W], s[6 * LEAF_W], s[7 * LEAF_W], s[8 * LEAF_W]};
-}
-
 // Asks L1 for the 128-byte lines of [p, p + bytes), all at once: a loop that
 // then reads them one record after another waits for one memory latency
 // instead of one each time it crosses into a new sector.
@@ -127,7 +118,7 @@ __device__ __forceinline__ void prefetch_l1(const void* p, int bytes) {
     asm volatile("prefetch.global.L1 [%0];" ::"l"(a));
 }
 
-// a per-triangle leaf record of DenseBVH.leaf_rec (B1): three float4,
+// a per-triangle leaf record of DenseBVH.leaf_rec (B1, B3): three float4,
 // [v0.xyz, prim], [e1.xyz, 0], [e2.xyz, 0], read as three 16-byte loads
 __device__ __forceinline__ Tri tri_record(const float4* __restrict__ rec, float& prim) {
   const float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 2);
@@ -172,52 +163,106 @@ __device__ __forceinline__ Ray enter_instance(const float* __restrict__ m, const
                   m[8] * w.dx + m[9] * w.dy + m[10] * w.dz);
 }
 
-// Walks the tables for one ray; returns true if the ray was truncated (step
-// bound or stack cap). Every lane of a full warp calls it together (the
-// node-loop votes name all 32 lanes): a lane without a ray passes tmax = 0.
-// ORDERED: descend into the nearer child first (by the ray's own slab entry),
-// else child 0 first. A ray with tmax <= 0 passes no slab test and accepts no
-// triangle, so it does not walk at all. A node step, an instance enter or
-// restore and a leaf visit each count one step against max_steps, checked
-// before the step, as in the reference.
+// B1's leaf visitor (B3's once its warp has split): tests the c distinct
+// triangles (records 0..c-1) of a leaf group of DenseBVH.leaf_rec in f32.
+// COUNT: also counts node steps, triangle tests and leaf visits (the counting
+// instantiation, run once per ray set for the bound; the main path never).
+template <bool CLOSEST, bool COUNT>
+struct LeafF32 {
+  const float4* __restrict__ rec;
+  int rec_stride;  // records per group (C)
+  float tmax;
+  float t_best, best_u, best_v;
+  int best_prim, best_inst;
+  bool occluded;
+  int n_node, n_tri, n_leaf;
+
+  // occlusion mode leaves the walk as soon as it is occluded, so its clip is
+  // tmax on every step it takes
+  __device__ float clip() const { return CLOSEST ? t_best : tmax; }
+
+  __device__ void on_node() {
+    if (COUNT) ++n_node;
+  }
+
+  __device__ bool visit(int gv, int inst, const Ray& r) {
+    const int count = 1 << (gv & 7);
+    const float4* g = rec + (size_t)(gv >> 3) * rec_stride * 3;
+    prefetch_l1(g, count * 48);
+    if (COUNT) ++n_leaf;
+    for (int j = 0; j < count; ++j) {
+      if (COUNT) ++n_tri;
+      float prim, tt, uu, vv;
+      const bool ok = mt_f32(r, tri_record(g + 3 * j, prim), tt, uu, vv);
+      if (CLOSEST) {
+        if (ok && tt < t_best) {
+          t_best = tt; best_u = uu; best_v = vv;
+          best_prim = (int)prim;
+          best_inst = inst;
+        }
+      } else if (ok && tt < tmax) {
+        occluded = true;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// The state of one ray's walk besides its stack: its ray (world space, or
+// the entered instance's object space), stack pointer, where it is (a node,
+// or a leaf or instance code), its instance, the steps it has taken, and
+// whether it still walks. B1 and B2 start it at the root; B3 starts it where
+// its warp left the shared walk. (The stack is a separate array: a struct
+// holding it would be placed in local memory whole, its scalars too.)
+struct Walk {
+  Ray r;
+  int sp, cur, inst, steps;
+  bool live;
+};
+
+// Walks the tables for one ray from state w and its stack; returns true if
+// the ray was truncated (step bound or stack cap). Every lane of a full warp
+// calls it together (the node-loop votes name all 32 lanes): a lane that
+// does not walk passes w.live = false. ORDERED: descend into the nearer child first
+// (by the ray's own slab entry), else child 0 first. A node step, an
+// instance enter or restore and a leaf visit each count one step against
+// max_steps, checked before the step, as in the reference.
 template <bool ORDERED, class Leaf>
-__device__ __forceinline__ bool walk(const float* __restrict__ nodes,
-                                     const float* __restrict__ inst16, int two_level,
-                                     const Ray& world, float tmax, int max_steps,
-                                     Leaf& leaf) {
-  Ray r = world;  // world space, or the entered instance's object space
-  int stack[STACK_CAP];
-  int sp = 0, cur = 0, inst = -1, steps = 0;
-  bool live = tmax > 0.0f, cut = false;
-  while (__any_sync(FULL_MASK, live)) {
-    // node loop: step until this lane holds a triangle leaf (cur) or is done
+__device__ __forceinline__ bool walk_from(const float* __restrict__ nodes,
+                                          const float* __restrict__ inst16, int two_level,
+                                          const Ray& world, int max_steps, Walk& w,
+                                          int* stack, Leaf& leaf) {
+  bool cut = false;
+  while (__any_sync(FULL_MASK, w.live)) {
+    // node loop: step until this lane holds a triangle leaf (w.cur) or is done
     bool at_leaf = false;
-    while (__any_sync(FULL_MASK, live && !at_leaf)) {
-      if (!live || at_leaf) continue;
-      if (steps >= max_steps) {
+    while (__any_sync(FULL_MASK, w.live && !at_leaf)) {
+      if (!w.live || at_leaf) continue;
+      if (w.steps >= max_steps) {
         cut = true;
-        live = false;
+        w.live = false;
         continue;
       }
       int nxt = DONE;
-      if (cur >= 0) {
-        ++steps;
+      if (w.cur >= 0) {
+        ++w.steps;
         leaf.on_node();
-        const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)cur * NODE_F);
+        const float4* np = reinterpret_cast<const float4*>(nodes + (size_t)w.cur * NODE_F);
         const float4 a = __ldg(np), b = __ldg(np + 1), c = __ldg(np + 2), e = __ldg(np + 3);
         const float t_clip = leaf.clip();
         const int c0 = (int)e.x, c1 = (int)e.y;
         float tn0, tn1;
-        const bool h0 = slab(r, a.x, a.y, a.z, a.w, b.x, b.y, t_clip, &tn0) && c0 != ABSENT;
-        const bool h1 = slab(r, b.z, b.w, c.x, c.y, c.z, c.w, t_clip, &tn1) && c1 != ABSENT;
+        const bool h0 = slab(w.r, a.x, a.y, a.z, a.w, b.x, b.y, t_clip, &tn0) && c0 != ABSENT;
+        const bool h1 = slab(w.r, b.z, b.w, c.x, c.y, c.z, c.w, t_clip, &tn1) && c1 != ABSENT;
         if (h0 && h1) {
           const bool swap = ORDERED && tn1 < tn0;
-          if (sp >= STACK_CAP) {
+          if (w.sp >= STACK_CAP) {
             cut = true;
-            live = false;
+            w.live = false;
             continue;
           }
-          stack[sp++] = swap ? c0 : c1;
+          stack[w.sp++] = swap ? c0 : c1;
           nxt = swap ? c1 : c0;
         } else if (h0) {
           nxt = c0;
@@ -225,48 +270,61 @@ __device__ __forceinline__ bool walk(const float* __restrict__ nodes,
           nxt = c1;
         }
       } else {
-        const int v = -(cur + 1);
+        const int v = -(w.cur + 1);
         if (!(two_level && (v & 1))) {
           at_leaf = true;  // a triangle leaf: swept below, with the warp
           continue;
         }
-        ++steps;
+        ++w.steps;
         const int iid = v >> 1;
         if (iid == RESTORE_ID) {
-          r = world;
-          inst = -1;
+          w.r = world;
+          w.inst = -1;
         } else {
-          if (sp >= STACK_CAP) {
+          if (w.sp >= STACK_CAP) {
             cut = true;
-            live = false;
+            w.live = false;
             continue;
           }
-          stack[sp++] = RESTORE_CODE;
+          stack[w.sp++] = RESTORE_CODE;
           const float* m = inst16 + (size_t)iid * INST_F;
-          r = enter_instance(m, world);
-          inst = iid;
+          w.r = enter_instance(m, world);
+          w.inst = iid;
           nxt = (int)m[12];
         }
       }
       if (nxt == DONE) {
-        if (sp == 0) {
-          live = false;
+        if (w.sp == 0) {
+          w.live = false;
           continue;
         }
-        nxt = stack[--sp];
+        nxt = stack[--w.sp];
       }
-      cur = nxt;
+      w.cur = nxt;
     }
     // leaf phase: every lane that holds a leaf sweeps it, together
     if (at_leaf) {
-      ++steps;
-      if (leaf.visit((-(cur + 1)) >> 1, inst, r) || sp == 0)
-        live = false;
+      ++w.steps;
+      if (leaf.visit((-(w.cur + 1)) >> 1, w.inst, w.r) || w.sp == 0)
+        w.live = false;
       else
-        cur = stack[--sp];
+        w.cur = stack[--w.sp];
     }
   }
   return cut;
+}
+
+// Walks the tables for one ray from the root (B1, B2). A ray with
+// tmax <= 0 passes no slab test and accepts no triangle, so it does not walk
+// at all (a lane without a ray passes tmax = 0).
+template <bool ORDERED, class Leaf>
+__device__ __forceinline__ bool walk(const float* __restrict__ nodes,
+                                     const float* __restrict__ inst16, int two_level,
+                                     const Ray& world, float tmax, int max_steps,
+                                     Leaf& leaf) {
+  int stack[STACK_CAP];
+  Walk w{world, 0, 0, -1, 0, tmax > 0.0f};
+  return walk_from<ORDERED>(nodes, inst16, two_level, world, max_steps, w, stack, leaf);
 }
 
 inline int grid_for(int n) { return (n + BLOCK - 1) / BLOCK; }

@@ -52,51 +52,6 @@ namespace {
 
 using namespace pbrt;
 
-// Tests the c distinct triangles (records 0..c-1) of a leaf group in f32.
-// COUNT: also counts node steps, triangle tests and leaf visits (the counting
-// instantiation, run once per ray set for the bound; the main path never).
-template <bool CLOSEST, bool COUNT>
-struct LeafF32 {
-  const float4* __restrict__ rec;
-  int rec_stride;  // records per group (C)
-  float tmax;
-  float t_best, best_u, best_v;
-  int best_prim, best_inst;
-  bool occluded;
-  int n_node, n_tri, n_leaf;
-
-  // occlusion mode leaves the walk as soon as it is occluded, so its clip is
-  // tmax on every step it takes
-  __device__ float clip() const { return CLOSEST ? t_best : tmax; }
-
-  __device__ void on_node() {
-    if (COUNT) ++n_node;
-  }
-
-  __device__ bool visit(int gv, int inst, const Ray& r) {
-    const int count = 1 << (gv & 7);
-    const float4* g = rec + (size_t)(gv >> 3) * rec_stride * 3;
-    prefetch_l1(g, count * 48);
-    if (COUNT) ++n_leaf;
-    for (int j = 0; j < count; ++j) {
-      if (COUNT) ++n_tri;
-      float prim, tt, uu, vv;
-      const bool ok = mt_f32(r, tri_record(g + 3 * j, prim), tt, uu, vv);
-      if (CLOSEST) {
-        if (ok && tt < t_best) {
-          t_best = tt; best_u = uu; best_v = vv;
-          best_prim = (int)prim;
-          best_inst = inst;
-        }
-      } else if (ok && tt < tmax) {
-        occluded = true;
-        return true;
-      }
-    }
-    return false;
-  }
-};
-
 template <bool CLOSEST, bool COUNT>
 __global__ void __launch_bounds__(BLOCK)
 traverse_kernel(const float* __restrict__ nodes, const float4* __restrict__ leaf_rec,

@@ -62,11 +62,13 @@ _SIGNATURES = {
     "traverse_rows": {
         "pbrt_trace_rows_stack_cap": ([], _i),
         "pbrt_trace_rows_error_string": ([_i], ctypes.c_char_p),
-        "pbrt_trace_closest_rows": ([_p, _p, _p, _i, _p, _p, _p, _i, _i,
+        "pbrt_trace_closest_rows": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i,
                                      _p, _p, _p, _p, _p, _p, _p], _i),
-        "pbrt_trace_any_rows": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p], _i),
-        "pbrt_trace_count_rows": ([_p, _p, _p, _i, _p, _p, _p, _i, _i, _i,
+        "pbrt_trace_any_rows": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i,
+                                 _p, _p, _p], _i),
+        "pbrt_trace_count_rows": ([_p, _p, _i, _p, _i, _p, _p, _p, _i, _i, _i,
                                    _p, _p, _p, _p, _p, _p, _p, _p, _p], _i),
+        "pbrt_rows_order_keys": ([_p, _p, _i, _p], _i),
     },
     "leaf_mt": {
         "pbrt_leaf_mt_error_string": ([_i], ctypes.c_char_p),

@@ -103,18 +103,19 @@ def launch_args(dbvh: DenseBVH, o, d, t_max, stack_cap: int, counts: dict):
 
 
 def run_counting(fn, error_string, lead: tuple, outs: tuple, trunc, stream,
-                 unit_ops: dict) -> dict:
+                 unit_ops: dict, keys: tuple = WORK_KEYS) -> dict:
     """Launch a kernel's counting instantiation ``fn(*lead, *outs, trunc,
-    counters, stream)`` and return its work counts (``WORK_KEYS``) and, under
-    ``"ops"``, the operations by type that ``unit_ops`` gives them. These
-    launches serve the bound in ``chip_smoke.py``; they are not main-path
-    launches and no ``LAUNCHES`` count includes them."""
-    counters = torch.zeros((len(WORK_KEYS),), dtype=torch.int64, device=trunc.device)
+    counters, stream)`` and return its counts (``keys``, in the kernel's
+    counter order) and, under ``"ops"``, the operations by type that
+    ``unit_ops`` gives them. These launches serve the bound in
+    ``chip_smoke.py``; they are not main-path launches and no ``LAUNCHES``
+    count includes them."""
+    counters = torch.zeros((len(keys),), dtype=torch.int64, device=trunc.device)
     err = fn(*lead, *(x.data_ptr() for x in outs), trunc.data_ptr(),
              counters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("counting launch failed: " + error_string(err).decode())
-    work = dict(zip(WORK_KEYS, counters.tolist()))
+    work = dict(zip(keys, counters.tolist()))
     ops: dict[str, int] = {}
     for key, per_unit in unit_ops.items():
         for kind, n in per_unit.items():

@@ -2,12 +2,14 @@
 of ``physically_based_ray_tracer_tpu/ops/pallas_rows.py``.
 
 Kernel B3 (``csrc/traverse_rows.cu``) computes kernel B1's function, the
-exact per-ray closest hit or occlusion on the f32 tables, and schedules it as
-the TPU row kernel does: one traversal per group of co-sorted rays, over the
-union of their paths, with one shared stack. On the TPU the group is a
-128-lane row; here it is a warp of 32 rays. Where B3 and B1 both find a hit,
-t is bit-equal; prim and instance differ only on t-ties, where visit order
-decides; occlusion is equal.
+exact per-ray closest hit or occlusion on B1's tables (``nodes16``,
+``leaf_rec``, ``inst16``), and schedules it as the TPU row kernel does while
+that pays: one traversal per group of co-sorted rays, with one shared stack.
+On the TPU the group is a 128-lane row; here it is a warp of 32 rays, and
+at the first node step where one of its rays would not take the warp's
+step the warp splits and each ray walks on alone, as in B1. Where B3 and B1
+both find a hit, t is bit-equal; prim and instance differ only on t-ties,
+where visit order decides; occlusion is equal.
 
 As in the JAX package, ``leaf_precision`` does not apply to this engine: it
 always runs on the exact f32 tables.
@@ -41,6 +43,15 @@ from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 # launch checks the built kernel's own value
 STACK_CAP = 64
 
+# what the counting instantiation counts, in counter order: B1's three
+# (the shared phase's node steps once per lane of the warp), and warps split
+WORK_KEYS = (*trace.WORK_KEYS, "split_warps")
+# the order-preserving integer image of the shared phase's nearer-child vote
+# (order_keys): every float32 that is not a NaN, in increasing order, is
+# number 0 (-inf) .. ORDERED_FLOATS - 1 (+inf), -0.0 just before +0.0
+_NEG_FLOATS = 0x7F800001               # -inf .. -0.0
+ORDERED_FLOATS = 2 * _NEG_FLOATS
+
 LAUNCHES = {"closest": 0, "any": 0}
 PLAIN_CALLS = {"closest": 0, "any": 0}
 # per-device int32 count of rays that hit the step bound or the stack cap
@@ -70,9 +81,9 @@ def _lead(dbvh: DenseBVH, lib, o, d, t_max):
     the truncation counter and the stream."""
     o, d, t_max, trunc, stream = trace.launch_args(
         dbvh, o, d, t_max, lib.pbrt_trace_rows_stack_cap(), _TRUNCATED)
-    lead = (dbvh.nodes16.data_ptr(), dbvh.groups.data_ptr(), dbvh.inst16.data_ptr(),
-            int(dbvh.two_level), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-            o.shape[0], max_steps(dbvh))
+    lead = (dbvh.nodes16.data_ptr(), dbvh.leaf_rec.data_ptr(), trace.record_stride(dbvh),
+            dbvh.inst16.data_ptr(), int(dbvh.two_level), o.data_ptr(), d.data_ptr(),
+            t_max.data_ptr(), o.shape[0], max_steps(dbvh))
     return lead, trunc, stream
 
 
@@ -107,10 +118,11 @@ def _launch(dbvh: DenseBVH, o, d, t_max, closest: bool):
 
 def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:
     """Node steps, triangle tests and leaf visits of one B3 launch on these
-    CUDA rays, and their operations (B1's arithmetic, ``trace.UNIT_OPS``).
-    Each warp's union walk is counted once per lane, idle lanes included:
-    this is the work B3's schedule does, not the work its function (B1's)
-    needs (see ``trace.run_counting``)."""
+    CUDA rays, the warps that split, and the operations (B1's arithmetic,
+    ``trace.UNIT_OPS``). The shared phase's node steps are counted once per
+    lane of the warp, idle lanes included, and every lane's triangle tests
+    and leaf visits as it runs them: this is the work B3's schedule does,
+    not the work its function (B1's) needs (see ``trace.run_counting``)."""
     from physically_based_ray_tracer_tpu_torch.ops import _build
 
     trace._check_rays(dbvh, o, d, t_max)
@@ -120,7 +132,66 @@ def count_work(dbvh: DenseBVH, o, d, t_max, closest: bool) -> dict:
                               lib.pbrt_trace_rows_error_string,
                               (*lead, int(closest)),
                               trace.raw_outputs(o.shape[0], o.device), trunc, stream,
-                              trace.UNIT_OPS)
+                              trace.UNIT_OPS, WORK_KEYS)
+
+
+def plain_order_keys(x: torch.Tensor) -> torch.Tensor:
+    """``order_key`` of ``csrc/traverse_rows.cu`` on float32 ``x``: int32
+    keys in the floats' order, -0.0 and +0.0 one key (the float's bits if
+    not negative, else its magnitude bits flipped)."""
+    b = x.view(torch.int32)
+    b = torch.where(b == -2**31, torch.zeros_like(b), b)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``order_key`` of contiguous float32 ``x`` on a CUDA
+    device (``plain_order_keys`` on the CPU)."""
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("order_keys takes a contiguous float32 tensor")
+    if x.device.type == "cpu":
+        return plain_order_keys(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no order_keys for device {x.device}")
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    lib = _build.load("traverse_rows")
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    err = lib.pbrt_rows_order_keys(x.data_ptr(), out.data_ptr(), x.numel(),
+                                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("order key launch failed: "
+                           + lib.pbrt_trace_rows_error_string(err).decode())
+    return out
+
+
+def ordered_floats(start: int, n: int, device) -> torch.Tensor:
+    """Floats number ``start`` .. ``start + n - 1`` of the non-NaN float32
+    values in increasing order (see ``ORDERED_FLOATS``)."""
+    i = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    bits = torch.where(i < _NEG_FLOATS, 0xFF800000 - i, i - _NEG_FLOATS)
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def order_key_mismatches(device, start: int = 0, count: int = ORDERED_FLOATS,
+                         chunk: int = 1 << 27) -> dict:
+    """Holds ``order_keys`` (the kernel on a CUDA device) against the float
+    order on the ``count`` non-NaN float32 values from number ``start``, in
+    chunks: for each pair of neighbours a < b (in float order) the keys must
+    compare as torch compares the floats (``<`` and ``==``: -0.0 == +0.0),
+    and equal ``plain_order_keys``. Neighbours in float order suffice: a key
+    order that agrees on each of them agrees on every pair. Returns the
+    pairs checked and the mismatches."""
+    pairs = order = plain = 0
+    for s0 in range(start, start + count - 1, chunk):
+        n = min(chunk + 1, start + count - s0)
+        x = ordered_floats(s0, n, device)
+        k = order_keys(x)
+        a, b, ka, kb = x[:-1], x[1:], k[:-1], k[1:]
+        order += int(((a < b) != (ka < kb)).sum() + ((a == b) != (ka == kb)).sum())
+        plain += int((k != plain_order_keys(x)).sum())
+        pairs += n - 1
+    return dict(pairs=pairs, order_mismatch=order, plain_mismatch=plain)
 
 
 def plain_traverse_rows(dbvh: DenseBVH, o, d, t_max, closest: bool):

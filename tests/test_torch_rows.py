@@ -2,7 +2,9 @@
 ``ops/trace_rows.py`` (its plain version, as the CPU runs it) vs the JAX
 package's ``ops/pallas_rows.py`` in interpret mode, on a one- and a two-level
 table; the slice (``render_sample``) vs the JAX package's with the same
-config and key; ``Renderer`` with this engine; the wrappers' checks.
+config and key; ``Renderer`` with this engine; the wrappers' checks; the
+launch arguments kernel B3 gets (through a stand-in for its library, which
+no CPU host builds); the order-preserving key of its nearer-child vote.
 
 Tolerances are those of tests/test_torch_trace.py: t within rtol=1e-5, prim
 and instance equal except where a float64 brute force sees a t-tie,
@@ -154,10 +156,173 @@ def test_wrapper_checks():
     assert trace_rows.LAUNCHES == {"closest": 0, "any": 0}
 
 
+class _StandInLib:
+    """Stands in for kernel B3's loaded library: records each entry point's
+    arguments and reports success."""
+
+    def __init__(self, stack_cap=trace_rows.STACK_CAP):
+        self.cap, self.calls = stack_cap, {}
+
+    def pbrt_trace_rows_stack_cap(self):
+        return self.cap
+
+    def __getattr__(self, name):
+        if not name.startswith("pbrt_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    lib = _StandInLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 7})())
+    return lib
+
+
+@pytest.mark.parametrize("level", sorted(TABLES))
+def test_launch_args_name_leaf_rec(stand_in, level):
+    """Both modes' launches and the counting launch pass B1's leaf records
+    (``leaf_rec`` and its records per group), never the ``groups`` rows;
+    the counting launch asks for four counters (B1's three and warps
+    split)."""
+    td = _port(TABLES[level]()[0])
+    o, d = (torch.from_numpy(x) for x in _rays(64, seed=15))
+    tm = torch.full((64,), 50.0)
+    _reset()
+    trace_rows._launch(td, o, d, tm, closest=True)
+    trace_rows._launch(td, o, d, tm, closest=False)
+    work = trace_rows.count_work(td, o, d, tm, closest=True)
+    assert trace_rows.LAUNCHES == {"closest": 1, "any": 1}
+    assert set(stand_in.calls) == {"pbrt_trace_closest_rows", "pbrt_trace_any_rows",
+                                   "pbrt_trace_count_rows"}
+    stride = td.leaf_rec.shape[0] // td.n_groups
+    for name, args in stand_in.calls.items():
+        assert args[:5] == (td.nodes16.data_ptr(), td.leaf_rec.data_ptr(), stride,
+                            td.inst16.data_ptr(), int(td.two_level)), name
+        assert args[8:10] == (64, trace_rows.max_steps(td)), name
+        assert td.groups.data_ptr() not in args, name
+        assert args[-1] == 7, name
+    assert set(work) == {"node_steps", "tri_tests", "leaf_visits", "split_warps", "ops"}
+    counters = stand_in.calls["pbrt_trace_count_rows"][-2]
+    assert counters != 0 and trace_rows.WORK_KEYS[-1] == "split_warps"
+
+
+def test_launch_refuses_tables(stand_in):
+    """A launch still refuses a table deeper than the built kernel's stack,
+    misaligned leaf records, and (counting) leaf records of another type;
+    nothing reaches the library."""
+    td = _port(TABLES["two-level"]()[0])
+    o, d = (torch.from_numpy(x) for x in _rays(64, seed=16))
+    tm = torch.full((64,), 50.0)
+    stand_in.cap = td.stack_need - 1
+    with pytest.raises(ValueError, match="stack"):
+        trace_rows._launch(td, o, d, tm, closest=True)
+    stand_in.cap = trace_rows.STACK_CAP
+    rec = td.leaf_rec
+    shifted = torch.empty(rec.numel() + 1)[1:].view(rec.shape)
+    shifted.copy_(rec)
+    with pytest.raises(ValueError, match="16-byte"):
+        trace_rows._launch(dataclasses.replace(td, leaf_rec=shifted), o, d, tm, closest=False)
+    with pytest.raises(ValueError, match="leaf_rec"):
+        trace_rows.count_work(dataclasses.replace(td, leaf_rec=rec.double()), o, d, tm, True)
+    assert stand_in.calls == {}
+
+
+@pytest.mark.parametrize("where", ["-inf", "zero", "+inf"])
+def test_order_keys_keep_float_order(where):
+    """The plain order key over runs of consecutive non-NaN floats (from
+    -inf, around -0.0 / +0.0 through the subnormals, up to +inf), checked
+    in chunks as chip_smoke.py checks the kernel's over all of them: keys
+    compare as the floats do, -0.0 and +0.0 one key."""
+    n = 1 << 16
+    start = {"-inf": 0, "zero": trace_rows._NEG_FLOATS - n // 2,
+             "+inf": trace_rows.ORDERED_FLOATS - n}[where]
+    r = trace_rows.order_key_mismatches("cpu", start, n, chunk=5000)
+    assert r == dict(pairs=n - 1, order_mismatch=0, plain_mismatch=0)
+    x = torch.tensor([-np.inf, -3e38, -1.0, -1e-45, -0.0, 0.0, 1e-45, 1.0, 1e30, np.inf])
+    k = trace_rows.plain_order_keys(x)
+    assert (k[1:] >= k[:-1]).all() and int((k[1:] == k[:-1]).sum()) == 1
+    assert int(k[4]) == int(k[5]) == 0
+    assert torch.equal(trace_rows.ordered_floats(trace_rows._NEG_FLOATS - 1, 2, "cpu")
+                       .view(torch.int32), torch.tensor([-2**31, 0], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        trace_rows.order_keys(x.double())
+
+
+def test_rows_split_sources():
+    """``time_kernels.py --rows-split`` builds B3 from copies of its source
+    that differ from it only in the split test: the kept source first, the
+    kept test at other counts, the count of lanes that hit a child, never."""
+    import difflib
+
+    import time_kernels
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+
+    src = _build.SOURCES["traverse_rows"].read_text()
+    srcs = time_kernels.rows_split_sources(src)
+    kept, *others = srcs
+    assert srcs[kept] == src and kept.startswith("off-step>=")
+    assert set(srcs) == ({f"off-step>={n}" for n in time_kernels.ROWS_OFF_STEP} | {kept}
+                         | {f"lanes<{n}" for n in time_kernels.ROWS_LANES} | {"never"})
+    for label in others:
+        changed = [ln for ln in difflib.unified_diff(src.splitlines(), srcs[label].splitlines(),
+                                                     lineterm="", n=0)
+                   if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+        added = [ln for ln in changed if ln.startswith("+")]
+        if label.startswith("off-step"):
+            assert added == [f"+constexpr int SPLIT_LANES = {label[10:]};"], label
+        elif label == "never":
+            assert added == ["+      if (false) {"], label
+        else:
+            assert added == [f"+      if ((take0 | take1) && __popc(take0 | take1) < "
+                             f"{label[6:]}) {{"], label
+            assert any("__ballot_sync" in ln for ln in changed if ln.startswith("-")), label
+    with pytest.raises(SystemExit):
+        time_kernels.rows_split_sources(src.replace("SPLIT_LANES) {", "SPLIT_LANES)  {"))
+
+
+def _gpu_sets(td, n, dev, seed):
+    """Three ray sets on ``td``'s scene, as chip_smoke.py's are made:
+    camera-like rays from one point, rays between random points of a
+    sphere (bounce-like), and shadow rays from those rays' hits towards one
+    point with tmax at it, one in five of them 0."""
+    gen = np.random.default_rng(seed)
+    eye = np.array([0.3, 0.5, 7.0], np.float32)
+    d = gen.normal(size=(n, 3)).astype(np.float32) * 0.6 - eye
+    primary = (np.broadcast_to(eye, (n, 3)).copy(), d / np.linalg.norm(d, axis=1, keepdims=True))
+    bounce = _rays(n, seed)
+    sets = {k: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in v)
+            for k, v in (("primary", primary), ("bounce", bounce))}
+    for k in sets:
+        o, d = sets[k]
+        sets[k] = (o, d, torch.full((n,), 1e30, device=dev))
+    o, d, tm = sets["bounce"]
+    t = trace.sorted_closest_dense(td, o, d, tm).t
+    p = o + d * torch.where(t < 1e29, t, torch.full_like(t, 3.0))[:, None]
+    lvec = torch.tensor([2.0, 6.0, 1.0], device=dev) - p
+    dist = lvec.norm(dim=1)
+    ld = lvec / dist[:, None]
+    zero = torch.from_numpy(gen.uniform(0, 1, n) < 0.2).to(dev)
+    sets["shadow"] = ((p + ld * 1e-4).contiguous(), ld.contiguous(),
+                      torch.where(zero, torch.zeros_like(dist), dist - 1e-4))
+    return sets
+
+
 @pytest.mark.cuda
 def test_rows_kernel_vs_plain_on_gpu():
     """Kernel B3 vs its plain version and vs B1 on one- and two-level tables
-    (runs where a GPU is present)."""
+    and three ray sets (runs where a GPU is present): t bit-equal to B1's
+    where both hit, prim and instance equal to the plain version's except on
+    t-ties, occlusion equal to both, no truncated ray; the order key on the
+    card equals the plain one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     from physically_based_ray_tracer_tpu_torch.ops import _build
@@ -166,19 +331,21 @@ def test_rows_kernel_vs_plain_on_gpu():
     for level in sorted(TABLES):
         jd, _ = TABLES[level]()
         td = _port(jd).to(dev)
-        o, d = (torch.from_numpy(x).to(dev) for x in _rays(4096, seed=14))
-        tm = torch.full((4096,), 1e30, device=dev)
-        *raw, t2 = trace_rows.plain_traverse_rows(td, o, d, tm, closest=True)
-        want = trace.to_hit(td, *raw)
-        hit = trace_rows.sorted_rows_closest(td, o, d, tm)
-        b1 = trace.sorted_closest_dense(td, o, d, tm)
-        found = want.prim >= 0
-        assert torch.equal(hit.prim >= 0, found)
-        assert torch.equal(hit.t, want.t) and torch.equal(hit.t, b1.t)
-        tie = t2 <= raw[0] * (1 + 1e-6)
-        assert bool(((hit.prim == want.prim) & (hit.inst == want.inst) | tie).all())
-        tmax = torch.where(found, want.t * 0.75, torch.full_like(want.t, 50.0))
-        occ = trace_rows.sorted_rows_any(td, o, d, tmax)
-        assert torch.equal(occ, trace_rows.plain_traverse_rows(td, o, d, tmax, closest=False))
-        assert torch.equal(occ, trace.sorted_any_dense(td, o, d, tmax))
+        for sname, (o, d, tm) in _gpu_sets(td, 4096, dev, seed=14).items():
+            *raw, t2 = trace_rows.plain_traverse_rows(td, o, d, tm, closest=True)
+            want = trace.to_hit(td, *raw)
+            hit = trace_rows.sorted_rows_closest(td, o, d, tm)
+            b1 = trace.sorted_closest_dense(td, o, d, tm)
+            found = want.prim >= 0
+            assert torch.equal(hit.prim >= 0, found), sname
+            assert torch.equal(hit.t, want.t) and torch.equal(hit.t, b1.t), sname
+            tie = t2 <= raw[0] * (1 + 1e-6)
+            assert bool(((hit.prim == want.prim) & (hit.inst == want.inst) | tie).all()), sname
+            for tmax in (tm, torch.where(found, want.t * 0.75, torch.full_like(want.t, 50.0))):
+                occ = trace_rows.sorted_rows_any(td, o, d, tmax)
+                assert torch.equal(occ, trace_rows.plain_traverse_rows(td, o, d, tmax,
+                                                                       closest=False)), sname
+                assert torch.equal(occ, trace.sorted_any_dense(td, o, d, tmax)), sname
         assert trace_rows.truncated_rays(dev) == 0
+    r = trace_rows.order_key_mismatches(dev, trace_rows._NEG_FLOATS - (1 << 20), 1 << 21)
+    assert r["order_mismatch"] == 0 and r["plain_mismatch"] == 0

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times kernels B1 and B2 of two checkouts of the port on one GPU, in turns;
-and the fused wave level's block shapes.
+"""Times kernels B1, B2 and B3 of two checkouts of the port on one GPU, in
+turns; B3's split thresholds; and the fused wave level's block shapes.
 
     python3 time_kernels.py --compare OTHER_ROOT     # OTHER, this, this, OTHER
     python3 time_kernels.py [--root ROOT] --out FILE.json
+    python3 time_kernels.py --rows-split             # kept, others, others reversed, kept
     python3 time_kernels.py --wave-blocks            # 1024, 512, 512, 1024
 
 ``--compare`` unpacks nothing itself: OTHER_ROOT is another checkout of the
@@ -11,9 +12,12 @@ repository (e.g. the parent commit, from ``git archive``). It runs one
 process per turn, in the order other, this, this, other, each on the same
 card, and prints per kernel, set and mode both checkouts' median times,
 bounds (each over the tables its own kernel reads), shares of bound and the
-counted work; it fails if the two
-checkouts count different work on the same rays (node steps, triangle or
-band tests, leaf visits). Each turn's JSON goes to ``--out-dir`` (default
+counted work; it fails if the two checkouts count different work for B1 or
+B2 on the same rays (node steps, triangle or band tests, leaf visits). B3's
+counted work is its schedule's, which a redesign may change: it is printed
+for both checkouts, with the warps that split where the checkout counts
+them; its bound is B1's work on the same rays, as in ``chip_smoke.py``.
+Each turn's JSON goes to ``--out-dir`` (default
 ``build/time_kernels/``). Frame times in turns: ``profile_torch_frame.py``
 run in each checkout.
 
@@ -21,13 +25,26 @@ One turn (``--out``) imports the package from ROOT (default: this
 checkout), builds its kernels, and on the bench scene's two-level table
 (``build_bench_scene(flatten="auto")``) and ``chip_smoke.py``'s three
 131,072-ray sets (primary, bounce, shadow; co-sorted as the main path sorts
-them) times each of B1 and B2 in closest and any mode, and B1 as the bf16
+them) times each of B1, B2 and B3 in closest and any mode, and B1 as the bf16
 engine's retest of the lanes B2 leaves uncertain (also with the L2 flushed
 before each run, as the frame finds it): the median of ``--runs``
 CUDA-event runs after a warm-up, each behind a ~1 ms device sleep, so that
 only device time counts. It counts the work of each launch with the
 kernel's counting instantiation and computes the bound as ``chip_smoke.py``
 does, with that checkout's ``chip_smoke.py``. Imports nothing of JAX.
+
+``--rows-split`` builds ``csrc/traverse_rows.cu`` once per split test
+(``rows_split_sources``: each from a copy of the source with its
+``SPLIT_LANES`` constant, or its whole split test, replaced; the checkout
+keeps one test and no switch): the kept test, walking lanes off the warp's
+step, at the counts of ``ROWS_OFF_STEP``; the count of lanes whose ray hits
+a child, split below each of ``ROWS_LANES`` (33: at the first node step any
+lane's ray enters); never. It prints
+each build's registers, stack frame and spills, and times each on the
+three co-sorted 131,072-ray sets in both modes, in turns (the kept build,
+the others, the others reversed, the kept build), beside B1 on the same
+rays, with each build's counted work and warps split. It fails if any
+build's t or occlusion differs from the kept build's.
 
 ``--wave-blocks`` builds ``csrc/wave_level.cu`` once per block shape of
 ``WAVE_BLOCKS`` (its ``THREADS`` constant replaced in a copy of the source;
@@ -48,6 +65,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +73,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WAVE_BLOCKS = (1024, 512)    # the kept block shape first
+# B3's split tests tried by --rows-split: walking lanes off the warp's step
+# (the kept test's counts), lanes whose ray hits a child (split below), never
+ROWS_OFF_STEP = (1, 2, 4, 8)
+ROWS_LANES = (4, 8, 16, 24, 33)
+ROWS_SPLIT_CONST = r"constexpr int SPLIT_LANES = (\d+);"
+# the kept split test, from the lanes' own vote to the if that splits
+ROWS_SPLIT_TEST = r"const unsigned off_step =[^{]*?SPLIT_LANES\) \{"
 WAVE_CALLS = (("bounce", "closest"), ("shadow", "any"))
 L2_FLUSH_BYTES = 128 << 20  # written before each cold run: more than the 50 MB L2
 
@@ -96,7 +121,7 @@ def turn(root, runs, out_path):
     import torch
     import chip_smoke
     from physically_based_ray_tracer_tpu_torch import RenderConfig
-    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16
+    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_bf16, trace_rows
     from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
 
     if not torch.cuda.is_available():
@@ -120,12 +145,16 @@ def turn(root, runs, out_path):
             kern = {"f32": (lambda: trace._traverse(dbvh, o_s, d_s, tm_s, closest),
                             trace.count_work),
                     "bf16": (lambda: trace_bf16._call_bf16(dbvh, o_s, d_s, tm_s, closest),
-                             trace_bf16.count_work)}
+                             trace_bf16.count_work),
+                    "rows": (lambda: trace_rows._traverse(dbvh, o_s, d_s, tm_s, closest),
+                             trace_rows.count_work)}
             for eng, (fn, count) in kern.items():
                 ms, = _median_ms(fn, runs=runs)
                 work = count(dbvh, o_s, d_s, tm_s, closest)
+                # B3 computes B1's function: its bound is B1's work
+                need = res["kernels"][f"f32 {sname} {mode}"]["work"] if eng == "rows" else work
                 b_ms, b_by, nbytes = chip_smoke._bound(eng, mode, dbvh, o.shape[0],
-                                                       work["ops"])
+                                                       need["ops"])
                 res["kernels"][f"{eng} {sname} {mode}"] = dict(
                     ms=ms, bound_ms=b_ms, bound_by=b_by, share=b_ms / ms, work=work)
             if not closest:
@@ -140,7 +169,8 @@ def turn(root, runs, out_path):
                 res["kernels"][f"f32 {sname} retest"] = dict(
                     ms=ms, cold_ms=cold, lanes=int((unc & ~cert).sum()),
                     work=trace.count_work(dbvh, o_s, d_s, tm_r, False))
-    res["truncated"] = trace.truncated_rays(dev) + trace_bf16.truncated_rays(dev)
+    res["truncated"] = (trace.truncated_rays(dev) + trace_bf16.truncated_rays(dev)
+                        + trace_rows.truncated_rays(dev))
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res), flush=True)
@@ -166,7 +196,8 @@ def compare(other, runs, out_dir):
         o_ms = [k["ms"] for k in row["other"]]
         t_ms = [k["ms"] for k in row["this"]]
         wo, wt = row["other"][0]["work"], row["this"][0]["work"]
-        if {k: wo[k] for k in wo if k != "ops"} != {k: wt[k] for k in wt if k != "ops"}:
+        counts = lambda w: {k: v for k, v in w.items() if k != "ops"}
+        if not name.startswith("rows") and counts(wo) != counts(wt):
             bad.append(f"{name}: counted work differs: {wo} vs {wt}")
         b = row["this"][0]
         if "bound_ms" not in b:       # the retest: timed, no bound reported
@@ -188,12 +219,120 @@ def compare(other, runs, out_dir):
               f"{b['bound_ms']:.5f} ms ({b['bound_by']}); share other "
               f"{100 * o_b['bound_ms'] / statistics.mean(o_ms):.2f}% this "
               f"{100 * b['bound_ms'] / statistics.mean(t_ms):.2f}%; work "
-              f"{json.dumps({k: v for k, v in wt.items() if k != 'ops'})} [{card}]")
+              + (f"other {json.dumps(counts(wo))} this " if counts(wo) != counts(wt) else "")
+              + f"{json.dumps(counts(wt))} [{card}]")
     if any(r["truncated"] for _, r in got):
         bad.append("truncated rays")
     if bad:
         raise SystemExit("time_kernels: " + "; ".join(bad))
     print(json.dumps({"ok": True, "card": card}))
+
+
+def rows_split_sources(src: str) -> dict:
+    """{label: source} of ``--rows-split``'s builds of ``traverse_rows.cu``
+    source ``src``, the kept test first (``src`` itself)."""
+    found = re.findall(ROWS_SPLIT_CONST, src)
+    if len(found) != 1 or len(re.findall(ROWS_SPLIT_TEST, src)) != 1:
+        raise SystemExit("time_kernels: the split test not found once in traverse_rows.cu")
+    sources = {f"off-step>={found[0]}": src}
+    for n in ROWS_OFF_STEP:
+        sources.setdefault(f"off-step>={n}", re.sub(
+            ROWS_SPLIT_CONST, f"constexpr int SPLIT_LANES = {n};", src))
+    for n in ROWS_LANES:
+        test = f"if ((take0 | take1) && __popc(take0 | take1) < {n}) {{"
+        sources[f"lanes<{n}"] = re.sub(ROWS_SPLIT_TEST, lambda m, t=test: t, src)
+    sources["never"] = re.sub(ROWS_SPLIT_TEST, lambda m: "if (false) {", src)
+    return sources
+
+
+def rows_split(runs):
+    import ctypes
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.ops import _build, trace, trace_rows
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = chip_smoke._smi()
+    _build.build_all()
+    sources = rows_split_sources(_build.SOURCES["traverse_rows"].read_text())
+    variants = tuple(sources)
+    kept = variants[0]
+    tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+    procs = {}
+    for i, v in enumerate(variants):
+        cu = tmp / f"traverse_rows_{i}.cu"
+        cu.write_text(sources[v])
+        procs[v] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for i, (v, proc) in enumerate(procs.items()):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on the {v} copy of traverse_rows.cu:\n{log}")
+        use = [(u["registers"], u["stack_bytes"], u["spill_bytes"])
+               for u in chip_smoke._ptxas_usage(log).values()]
+        print(f"traverse_rows {v}: registers, stack frame, spill bytes per kernel {use} "
+              f"[{card}]", flush=True)
+        libs[v] = _build.bind(ctypes.CDLL(str(tmp / f"traverse_rows_{i}.so")),
+                              "traverse_rows")
+
+    scene, cam, _ = build_bench_scene(flatten="auto", device=dev)
+    cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True,
+                       skybox=False, one_shadow_ray=True, chunk_pixels=65536)
+    dbvh = scene.dense
+    calls = {}
+    for sname, (o, d, tm) in chip_smoke._ray_sets(scene, cam, cfg, dev).items():
+        _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+        for mode in ("closest", "any"):
+            calls[(sname, mode)] = (o_s, d_s, tm_s, mode == "closest")
+    names = (*variants, "B1")
+    times = {(v, c): [] for v in names for c in calls}
+    want, work, bad = {}, {}, []
+    for v in (*variants, *reversed(variants)):
+        _build._LIBS["traverse_rows"] = libs[v]
+        for c, (o_s, d_s, tm_s, closest) in calls.items():
+            fn = lambda: trace_rows._traverse(dbvh, o_s, d_s, tm_s, closest)
+            b1 = lambda: trace._traverse(dbvh, o_s, d_s, tm_s, closest)
+            ms, b1_ms = _median_ms(fn, b1, runs=runs)
+            times[(v, c)].append(ms)
+            times[("B1", c)].append(b1_ms)
+            out = fn()
+            got = out[0] if closest else out          # t, or occlusion
+            if c not in want:
+                want[c] = got
+            elif not torch.equal(got, want[c]):
+                bad.append(f"{v} {c}: {'t' if closest else 'occlusion'} differs from "
+                           f"{kept}'s")
+            if (v, c) not in work:
+                work[(v, c)] = trace_rows.count_work(dbvh, o_s, d_s, tm_s, closest)
+    need = {c: trace.count_work(dbvh, *calls[c]) for c in calls}
+    for c in calls:
+        b1 = statistics.mean(times[("B1", c)])
+        for v in names:
+            ms = statistics.mean(times[(v, c)])
+            line = (f"rows {c[0]:7s} {c[1]:7s} {v:12s} "
+                    f"{' / '.join(f'{x:.4f}' for x in times[(v, c)])} ms, / B1 {ms / b1:.3f}")
+            if v != "B1":
+                w = work[(v, c)]
+                line += (f"; work {w['ops']['f32'] / need[c]['ops']['f32']:.2f}x B1's ops, "
+                         f"{w['split_warps']} warps split")
+            print(f"{line} [{card}]", flush=True)
+    _build._LIBS.pop("traverse_rows")
+    if trace_rows.truncated_rays(dev) + trace.truncated_rays(dev):
+        bad.append("truncated rays")
+    if bad:
+        raise SystemExit("time_kernels: " + "; ".join(bad))
+    print(json.dumps({"ok": True, "card": card, "kept": kept}))
 
 
 def wave_blocks(runs):
@@ -313,15 +452,18 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--out-dir", default=os.path.join(HERE, "build", "time_kernels"))
     ap.add_argument("--wave-blocks", action="store_true")
+    ap.add_argument("--rows-split", action="store_true")
     a = ap.parse_args()
-    if a.wave_blocks:
+    if a.rows_split:
+        rows_split(a.runs)
+    elif a.wave_blocks:
         wave_blocks(a.runs)
     elif a.compare:
         compare(a.compare, a.runs, a.out_dir)
     elif a.out:
         turn(a.root, a.runs, a.out)
     else:
-        ap.error("give --compare OTHER_ROOT or --out FILE")
+        ap.error("give --compare OTHER_ROOT, --out FILE, --rows-split or --wave-blocks")
 
 
 if __name__ == "__main__":
