@@ -128,7 +128,30 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    every plain version never, no truncated push, a finite image, >= 99.99%
    of pixels allclose (rtol 2e-4, atol 2e-5) to the f32 frame of the same
    key;
-11. prints the kernels' JSON line, the card line and, last,
+11. the command-line render path (after 10, before 9), at 1280x720:
+   (a) the bench scene under the repo's sky fixture
+   (``tests/golden/sky_32x16.hdr``), ``skybox=True``, ``post_processed``
+   with preset 1 (Panini of its fov / distortion, grading, vignette,
+   aberration -1) and ``samples_per_pixel=2``: one warm-up and one timed
+   tick, B2 closest and any launched, plain versions never, a finite image;
+   the same first tick without the sky differs on > 90% of the pixels whose
+   primary ray missed; ``capture`` writes a non-empty file (its format
+   printed: PNG, or PPM where PIL is absent); (b) the eight AOV views, one
+   tick each (B2 closest only, no plain version, finite), and B2's unsorted
+   exact-refine pass (``render_aov``'s) vs its plain version on the
+   primary rays of a chunk's worth of pixels drawn over the frame (more
+   than a quarter of them hit): equal keys, instances and refined hits
+   outside near-tie lanes, the wrapper equal to the kernel's decoded
+   result;
+   (c) ``shade_tile=4096`` with the f32 engine: one tick, >= 99.99% of
+   pixels allclose (rtol 2e-4, atol 2e-5) to phase 7's first f32 tick (the
+   count of differing pixels printed, 0 expected: B1 is exact per ray),
+   its time beside phase 7's; (d) ``python -m
+   physically_based_ray_tracer_tpu_torch.cli --demo cornell --width 1280
+   --height 720 --spp 2 --post --out build/cli_cornell.png``: exit 0 and
+   the file written. Every frame time is printed with the card's name and
+   power limit;
+12. prints the kernels' JSON line, the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -212,6 +235,11 @@ WAVE_RAYS = 122880      # one AA chunk of the bench frame: 960 tiles of 128
 WAVE_FRAME_CLOSE = 0.9999
 WAVE_VS_B1 = 1e-4       # the most found / occlusion mismatch vs B1
 WAVE_SAME_PRIM = 0.9995
+# the command-line path: the sky fixture, and the shade_tile frame's share
+# of pixels allclose to the full-width f32 frame (B1 is exact per ray, so 0
+# differ is expected)
+SKY_FIXTURE = os.path.join("tests", "golden", "sky_32x16.hdr")
+SHADE_TILE_CLOSE = 0.9999
 
 
 def _smi() -> str:
@@ -391,6 +419,7 @@ def _compare_bf16(name, dbvh, o, d, tm, report):
         found_mismatch_near=int(((found_k != found_p) & near).sum()),
         near_tie=int(near.sum()),
         key_mismatch=int((~same_key & out).sum()),
+        key_mismatch_near=int((~same_key & near).sum()),
         prim_mismatch=int(((hk.prim != hp.prim) & out).sum()),
         t_max_abs=float((t_k - t_p).abs()[same_key].max()) if same_key.any() else 0.0,
         wrapper_mismatch=int(sum(int((a != b).sum()) for a, b in zip(wrapped, unsorted))),
@@ -912,6 +941,154 @@ def _chunk_gpu_vs_cpu(renderer, cfg, n, frac, what):
     _check(close.mean() >= frac, f"{what}: kernel and plain chunk images disagree")
 
 
+def _b2_unsorted_vs_plain(dbvh, o, d):
+    """B2 on unsorted rays with the exact refine (render_aov's closest-hit
+    pass) vs its plain version on the same lanes: equal found masks, keys,
+    instances and refined hit records outside the near-tie lanes, and the
+    wrapper equal to the kernel's decoded result on every lane."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import trace_bf16 as tb
+    tm = tb._far(o)
+    t_k, gk_k, i_k = tb._call_bf16(dbvh, o, d, tm, closest=True)
+    t_p, gk_p, i_p, near = tb.plain_traverse_bf16(dbvh, o, d, tm, True)
+    hk = tb._decode_refine(dbvh, o, d, tm, t_k, gk_k, i_k)
+    hp = tb._decode_refine(dbvh, o, d, tm, t_p, gk_p, i_p)
+    wrapped = tb.intersect_closest_bf16(dbvh, o, d, refine="exact")
+    torch.cuda.synchronize()
+    out = ~near
+    r = dict(rays=int(o.shape[0]), found=int((gk_p >= 0).sum()), near_tie=int(near.sum()),
+             key_mismatch=int((((gk_k != gk_p) | (i_k != i_p)) & out).sum()),
+             hit_mismatch=int(sum(int(((_bits(a) != _bits(b)) & out).sum())
+                                  for a, b in zip(hk, hp))),
+             wrapper_mismatch=int(sum(int((_bits(a) != _bits(b)).sum())
+                                      for a, b in zip(wrapped, hk))))
+    print(f"  B2 unsorted, refine='exact' (render_aov's pass): {json.dumps(r)}", flush=True)
+    _check(r["found"] > r["rays"] // 4, "B2 unsorted check: too few rays hit")
+    _check(r["key_mismatch"] == 0 and r["hit_mismatch"] == 0,
+           "B2 unsorted exact-refine hits differ from the plain version outside near lanes")
+    _check(r["wrapper_mismatch"] == 0,
+           "intersect_closest_bf16(refine='exact') differs from the kernel's decoded result")
+
+
+def _cli_path(scene2, cam, cfg, dev, card, first32, ms32, engines):
+    """Phase 11: the command-line render path on the bench frame. Returns
+    the frame times it printed."""
+    import dataclasses
+    import torch
+    from physically_based_ray_tracer_tpu_torch.config import RenderMode
+    from physically_based_ray_tracer_tpu_torch.ops import trace_bf16
+    from physically_based_ray_tracer_tpu_torch.ops.tonemap import POST_PRESETS
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
+    from physically_based_ray_tracer_tpu_torch.utils.image import read_hdr
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    report = {}
+
+    # (a) the bench scene under the repo's sky fixture, Panini + post preset
+    # 1, two in-frame samples; the same frame without the sky
+    sky = torch.from_numpy(read_hdr(os.path.join(root, SKY_FIXTURE))).to(dev)
+    scene_sky = dataclasses.replace(scene2, sky=sky)
+    pp = POST_PRESETS[1]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    cam_p = dataclasses.replace(cam, fov=f32(pp["fov"]), distortion=f32(pp["distortion"]))
+    cfg_a = cfg.replace(skybox=True, post_processed=True, post_preset=1,
+                        samples_per_pixel=2)
+    r_a = Renderer(scene_sky, cam_p, cfg_a, device=dev)
+    first_a, img, warm, ms, counts = _frame(r_a, 1, engines)
+    launches = counts["trace_bf16"][0]
+    plain = sum(sum(c[1].values()) for c in counts.values())
+    print(f"frame 1280x720 4 bounces AA bf16, sky + Panini + post preset 1, spp 2: warm-up "
+          f"{warm:.2f} s, {ms[0]:.2f} ms; B2 launches {launches}, B1 launches "
+          f"{counts['trace'][0]}, plain-version calls {plain} [{card}]", flush=True)
+    report["sky_post_spp2_ms"] = ms[0]
+    _check(launches["closest"] > 0 and launches["any"] > 0,
+           "the sky/post/spp frame did not launch both B2 modes")
+    _check(plain == 0, "the sky/post/spp frame called a plain version")
+    _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+           "sky/post/spp image not finite or of the wrong shape")
+    dist = np.empty(cfg.n_pixels, np.float32)
+    dist[r_a._pixel_ids_np] = r_a.film.dist.cpu().numpy()
+    miss = dist.reshape(720, 1280) >= 1e29
+    r_dark = Renderer(scene_sky, cam_p, cfg_a.replace(skybox=False), device=dev)
+    t0 = time.perf_counter()
+    dark = r_dark.tick(0)
+    torch.cuda.synchronize()
+    differ = (first_a != dark).any(axis=-1)
+    share = float(differ[miss].mean()) if miss.any() else 0.0
+    print(f"sky vs no sky (first ticks, same key): {int(miss.sum())} pixels miss, "
+          f"{share * 100:.3f}% of them differ; no-sky frame "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms [{card}]", flush=True)
+    _check(miss.sum() > 0 and share > 0.9, "the sky does not show on missed pixels")
+    path = r_a.capture(os.path.join(out_dir, "smoke_capture.png"))
+    with open(path, "rb") as f:
+        head = f.read(8)
+    fmt = "png" if head.startswith(b"\x89PNG") else "ppm (PIL absent)"
+    size = os.path.getsize(path)
+    print(f"capture: {path}, {size} bytes, format {fmt}", flush=True)
+    _check(size > 0, "capture wrote an empty file")
+
+    # (b) every AOV view on the bench frame, one tick each; B2's unsorted
+    # exact-refine pass vs its plain version on a chunk of frame-wide rays
+    aov_ms = {}
+    for mode in RenderMode:
+        if mode == RenderMode.BRDF:
+            continue
+        r = Renderer(scene2, cam, cfg.replace(rendering_mode=mode), device=dev)
+        for c in engines:
+            c.reset_counts()
+        t0 = time.perf_counter()
+        img = r.tick(0)
+        torch.cuda.synchronize()
+        aov_ms[mode.name] = (time.perf_counter() - t0) * 1e3
+        la, pl = dict(trace_bf16.LAUNCHES), sum(sum(c.PLAIN_CALLS.values()) for c in engines)
+        _check(la["closest"] > 0 and la["any"] == 0 and pl == 0,
+               f"AOV {mode.name}: B2 closest only, no plain version ({la}, plain {pl})")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               f"AOV {mode.name} image not finite")
+    print(f"AOV frames 1280x720 (one tick each, ms): {json.dumps(aov_ms)} [{card}]",
+          flush=True)
+    report["aov_ms"] = aov_ms
+    # a chunk's worth of pixels drawn over the whole frame (the first Morton
+    # chunk is all sky), in the main path's Morton order
+    n_chunks = -(-cfg.n_pixels // cfg.chunk_pixels)
+    ids = torch.from_numpy(_frame_pixels(cfg, -(-cfg.n_pixels // n_chunks),
+                                         np.random.default_rng(2))).to(dev)
+    o, d = primary_rays(cam, torch.remainder(ids, cfg.width).float(),
+                        torch.div(ids, cfg.width, rounding_mode="floor").float(),
+                        cfg.width, cfg.height)
+    _b2_unsorted_vs_plain(scene2.dense, o.contiguous(), d.contiguous())
+
+    # (c) the sub-tile shading gates (shade_tile=4096) on the f32 frame
+    cfg_c = cfg.replace(leaf_precision="f32", shade_tile=4096)
+    r_c = Renderer(scene2, cam, cfg_c, device=dev)
+    first_c, _, _, ms_c, counts_c = _frame(r_c, 1, engines)
+    close = np.isclose(first_c, first32, rtol=2e-4, atol=2e-5).all(axis=-1)
+    print(f"shade_tile=4096 f32 frame: {ms_c[0]:.2f} ms against shade_tile=0 "
+          f"{ms32:.2f} ms ({ms_c[0] / ms32:.2f}x); {int((~close).sum())} pixels differ "
+          f"from the shade_tile=0 frame ({close.mean() * 100:.4f}% allclose); B1 launches "
+          f"{counts_c['trace'][0]} [{card}]", flush=True)
+    report["shade_tile_4096_ms"] = ms_c[0]
+    _check(close.mean() >= SHADE_TILE_CLOSE, "shade_tile=4096 frame vs shade_tile=0 frame")
+
+    # (d) the command line as a user runs it
+    out = os.path.join(out_dir, "cli_cornell.png")
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.cli", "--demo", "cornell",
+                          "--width", "1280", "--height", "720", "--spp", "2", "--post",
+                          "--out", out], cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    print(f"cli ({time.perf_counter() - t0:.1f} s, exit {res.returncode}):\n"
+          f"{res.stderr.strip()}\n{res.stdout.strip()} [{card}]", flush=True)
+    _check(res.returncode == 0, "the command line failed")
+    _check(os.path.exists(out) and os.path.getsize(out) > 0, "the command line wrote no file")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -1167,6 +1344,7 @@ def main() -> int:
         first32, img, warm, ms, counts = _frame(r32, 1, engines)
         launches32 = counts["trace"][0]
         plain32 = sum(sum(c[1].values()) for c in counts.values())
+        ms32 = ms[0]
         print(f"frame 1280x720 4 bounces AA f32: warm-up {warm:.2f} s, "
               f"{ms[0]:.2f} ms [{card}]", flush=True)
         print(f"main path (2 frames): B1 launches {launches32}, B2 launches "
@@ -1251,12 +1429,17 @@ def main() -> int:
               f"{float(np.abs(first_wave - first32).max()):.3e}", flush=True)
         _check(close.mean() >= WAVE_FRAME_CLOSE, "wave frame vs f32 frame")
 
+    # 11. the command-line render path: sky, Panini + post, spp, AOVs,
+    # sub-tile gates, the CLI itself
+    with _Phase("command-line render path"):
+        _cli_path(scene2, cam, cfg, dev, card, first32, ms32, engines)
+
     # 9. GPU vs CPU chunks
     with _Phase("GPU vs CPU chunks"):
         _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
         _chunk_gpu_vs_cpu(r16, cfg, BF16_CHUNK, 0.98, "bf16 engine")
 
-    # 10. result lines
+    # 12. result lines
     def err(eng, mode):
         if eng == "bf16":
             rep = rep_bf16

@@ -42,7 +42,8 @@ import torch
 from physically_based_ray_tracer_tpu_torch.bvh.dense import (ABSENT, BF_ROWS,
                                                              GROUP_ROWS,
                                                              INST_F, LEAF_W,
-                                                             NODE_F, DenseBVH)
+                                                             NODE_F, RESTORE_ID,
+                                                             DenseBVH)
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
 from physically_based_ray_tracer_tpu_torch.ops import trace
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
@@ -276,7 +277,138 @@ def _space_table(dbvh: DenseBVH, root: int, nodes: np.ndarray) -> dict:
     node_box = torch.as_tensor(np.array([boxes[g] for g, _ in leaves], np.float32)
                                .reshape(-1, 6), device=dev)
     return dict(slot=as_t(slot), key=as_t(key), rank=as_t(rank), comps=comps,
-                glo=glo, node_box=node_box, n_groups=len(leaves))
+                glo=glo, node_box=node_box, n_groups=len(leaves),
+                groups=[g for g, _ in leaves])
+
+
+REF_TILE = 1024         # rays per walk of the reference TPU kernel (one program)
+_DONE = 0x7FFFFFFF
+_BIG = 1e30
+
+
+def _tile_walk(dbvh: DenseBVH, o, d, t_max, pair_t, pair_k, pair_col, tiles):
+    """The winners of the reference TPU kernel's closest-hit walk for the
+    rays of ``tiles`` (each tile = REF_TILE consecutive rays of the launch).
+
+    The reference walks a tile's rays together, with one stack: at a node it
+    descends first into the child whose smallest slab entry over the tile's
+    lanes that hit it (clipped at each lane's running best t) is smaller,
+    and at a leaf every lane takes the group's best candidate only if it is
+    strictly smaller than the lane's running best. ``pair_t`` / ``pair_k``
+    (B, P) are each lane's best candidate t and winner key per (space,
+    group) pair from the brute force; ``pair_col`` (spaces, groups) maps a
+    pair to its column (-1: none). Returns (t, gk, inst) for the tiles'
+    rays, (len(tiles), REF_TILE) each."""
+    dev = o.device
+    B = o.shape[0]
+    NT = tiles.shape[0]
+    rows = tiles[:, None] * REF_TILE + torch.arange(REF_TILE, device=dev)[None, :]
+    valid = rows < B
+    rows = rows.clamp(max=B - 1)
+    wo = [o[rows, a] for a in range(3)]
+    wd = [d[rows, a] for a in range(3)]
+    t_ref = torch.where(valid, t_max[rows], torch.zeros_like(t_max[rows]))
+    gk = torch.full((NT, REF_TILE), -1, dtype=torch.int32, device=dev)
+    iout = torch.full_like(gk, -1)
+    ro, rdir = list(wo), list(wd)
+    rr = [safe_rcp(c) for c in rdir]
+    nodes = dbvh.nodes16.reshape(-1, NODE_F)
+    inst16 = dbvh.inst16.reshape(-1, INST_F) if dbvh.two_level else None
+    sent = -((RESTORE_ID * 2 + 1) + 1)
+    cap = 2 * nodes.shape[0] + 16
+    stack = torch.zeros((NT, cap), dtype=torch.int64, device=dev)
+    sp = torch.zeros((NT,), dtype=torch.int64, device=dev)
+    cur = torch.zeros((NT,), dtype=torch.int64, device=dev)
+    inst = torch.full((NT,), -1, dtype=torch.int64, device=dev)
+    ar = torch.arange(NT, device=dev)
+
+    def slab(lo, hi):
+        t0 = [(lo[:, a, None] - ro[a]) * rr[a] for a in range(3)]
+        t1 = [(hi[:, a, None] - ro[a]) * rr[a] for a in range(3)]
+        tn = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                         torch.minimum(t0[1], t1[1])),
+                           torch.minimum(t0[2], t1[2]))
+        tf = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                         torch.maximum(t0[1], t1[1])),
+                           torch.maximum(t0[2], t1[2]))
+        h = (tn <= tf) & (tf > 0.0) & (tn < t_ref) & (t_ref > 0.0)
+        return h, tn
+
+    while bool((cur != _DONE).any()):
+        live = cur != _DONE
+        is_leaf = live & (cur < 0)
+        v = torch.where(is_leaf, -(cur + 1), torch.zeros_like(cur))
+        if dbvh.two_level:
+            is_inst = is_leaf & (v % 2 == 1)
+            iid = v // 2
+            is_restore = is_inst & (iid == RESTORE_ID)
+            enter = is_inst & ~is_restore
+        else:
+            is_inst = is_restore = enter = torch.zeros_like(is_leaf)
+        is_tri = is_leaf & ~is_inst
+        is_node = live & ~is_leaf
+
+        nd = nodes[torch.where(is_node, cur, torch.zeros_like(cur))]
+        c0, c1 = nd[:, 12].long(), nd[:, 13].long()
+        h0, tn0 = slab(nd[:, 0:3], nd[:, 3:6])
+        h1, tn1 = slab(nd[:, 6:9], nd[:, 9:12])
+        any0 = h0.any(dim=1) & (c0 != ABSENT)
+        any1 = h1.any(dim=1) & (c1 != ABSENT)
+        m0 = torch.where(h0, tn0, torch.full_like(tn0, _BIG)).min(dim=1).values
+        m1 = torch.where(h1, tn1, torch.full_like(tn1, _BIG)).min(dim=1).values
+        swap = m1 < m0
+        near_c = torch.where(swap, c1, c0)
+        far_c = torch.where(swap, c0, c1)
+        near_ok = torch.where(swap, any1, any0)
+        far_ok = torch.where(swap, any0, any1)
+        push = is_node & near_ok & far_ok
+        stack[ar, sp.clamp(max=cap - 1)] = torch.where(push, far_c,
+                                                       stack[ar, sp.clamp(max=cap - 1)])
+        sp = sp + push.long()
+        nxt = torch.where(near_ok, near_c,
+                          torch.where(far_ok, far_c, torch.full_like(cur, _DONE)))
+        nxt = torch.where(is_node, nxt, torch.full_like(cur, _DONE))
+
+        if bool(is_tri.any()):
+            g = (v // 2) // 8
+            space = inst.clamp(min=0) if dbvh.two_level else torch.zeros_like(inst)
+            col = pair_col[space, g.clamp(max=pair_col.shape[1] - 1)]
+            ok = is_tri & (col >= 0)
+            colc = col.clamp(min=0)[:, None].expand(-1, REF_TILE)
+            t8 = pair_t[rows, colc]
+            k8 = pair_k[rows, colc]
+            won = ok[:, None] & (t8 < t_ref) & (k8 >= 0)
+            t_ref = torch.where(won, t8, t_ref)
+            gk = torch.where(won, k8.to(torch.int32), gk)
+            iout = torch.where(won, inst[:, None].to(torch.int32)
+                               .expand(-1, REF_TILE), iout)
+
+        if dbvh.two_level and bool(is_inst.any()):
+            stack[ar, sp.clamp(max=cap - 1)] = torch.where(
+                enter, torch.full_like(cur, sent), stack[ar, sp.clamp(max=cap - 1)])
+            sp = sp + enter.long()
+            m = inst16[torch.where(enter, iid, torch.zeros_like(iid))]
+            sel = enter[:, None]
+            new_o = [m[:, 4 * a, None] * wo[0] + m[:, 4 * a + 1, None] * wo[1]
+                     + m[:, 4 * a + 2, None] * wo[2] + m[:, 4 * a + 3, None]
+                     for a in range(3)]
+            new_d = [m[:, 4 * a, None] * wd[0] + m[:, 4 * a + 1, None] * wd[1]
+                     + m[:, 4 * a + 2, None] * wd[2] for a in range(3)]
+            back = is_restore[:, None]
+            for a in range(3):
+                ro[a] = torch.where(sel, new_o[a], torch.where(back, wo[a], ro[a]))
+                rdir[a] = torch.where(sel, new_d[a], torch.where(back, wd[a], rdir[a]))
+            rr = [safe_rcp(c) for c in rdir]
+            inst = torch.where(enter, iid, torch.where(is_restore, -1, inst))
+            nxt = torch.where(enter, m[:, 12].round().long(), nxt)
+
+        pop = live & (nxt == _DONE) & (sp > 0)
+        top = stack[ar, (sp - 1).clamp(min=0)]
+        nxt = torch.where(pop, top, nxt)
+        sp = sp - pop.long()
+        cur = torch.where(live, nxt, cur)
+    t = torch.where(gk >= 0, t_ref, t_max[rows])
+    return t, gk, iout
 
 
 def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
@@ -292,7 +424,13 @@ def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
     Closest mode returns (t, gk, inst, near_tie): the kernel's raw outputs
     (t = t_max, gk = inst = -1 where nothing was accepted; inst = -1 for
     single-level tables) and the lanes where the order groups are visited
-    in may pick another winner. A traversal visits a group only if its
+    in may pick another winner. On those near lanes the winner is the one
+    the reference TPU kernel's walk picks (``_tile_walk``: each
+    REF_TILE-ray tile of the launch walks with one stack, nearer child by
+    the tile's smallest entry first), so that on the CPU the port picks
+    what the JAX package picks, exact bf16 ties across groups included;
+    kernel B2 walks each ray alone (nearer child by its own entry) and may
+    pick another winner there. A traversal visits a group only if its
     leaf's f32 slab test passes (the node box, which may be an ulp tighter
     than the ``glo`` box of the lane gate) with an entry before the running
     best (t_max at first). So the winning group can be skipped, or an equal
@@ -334,14 +472,27 @@ def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
     unc = torch.zeros_like(cert)
     near = torch.zeros_like(cert)
     budget = trace._pair_budget(dev)
+    # closest: each lane's best candidate t and key per (space, group)
+    # pair, for the reference walk on near lanes (_tile_walk)
+    n_all = dbvh.groups_bf.shape[0] // BF_ROWS
+    pair_col = torch.full((len(spaces), n_all), -1, dtype=torch.int64, device=dev)
+    pair_t, pair_k, n_pairs = [], [], 0
 
-    for iid, root in spaces:
+    for si, (iid, root) in enumerate(spaces):
         if root not in tables:
             tables[root] = _space_table(dbvh, root, nodes)
         tab = tables[root]
         n_cand = tab["slot"].shape[0]
         if n_cand == 0:
             continue
+        if closest:
+            gids = torch.as_tensor(tab["groups"], dtype=torch.int64, device=dev)
+            pair_col[si, gids] = n_pairs + torch.arange(tab["n_groups"], device=dev)
+            n_pairs += tab["n_groups"]
+            pt = torch.full((B, tab["n_groups"]), float("inf"), device=dev)
+            pk = torch.full((B, tab["n_groups"]), -1, dtype=torch.int32, device=dev)
+            pair_t.append(pt)
+            pair_k.append(pk)
         if iid >= 0:
             m = dbvh.inst16[iid * INST_F: iid * INST_F + 12]
             wx, wy, wz = o[:, 0], o[:, 1], o[:, 2]
@@ -424,6 +575,12 @@ def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
                 gbest = torch.full((R, tab["n_groups"]), float("inf"), device=dev)
                 gbest = gbest.scatter_reduce(1, slot[None, :].expand(R, -1), tc,
                                              "amin")
+                # each group's winner: its smallest t, then its largest key
+                gmin = gbest[:, slot]
+                kk = torch.where((tc == gmin) & (tc < inf), tab["key"][None, :], -1)
+                pt[rs] = gbest
+                pk[rs] = torch.full_like(gbest, -1, dtype=torch.int64).scatter_reduce(
+                    1, slot[None, :].expand(R, -1), kk, "amax").to(torch.int32)
                 two = torch.topk(torch.cat([gbest, best_t[rs, None],
                                             second_t[rs, None]], 1),
                                  2, dim=1, largest=False).values
@@ -451,6 +608,18 @@ def plain_traverse_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool,
     inst = torch.where(found, best_i, -1)
     near = found & (best_out | (torch.minimum(second_t, t_max)
                                 <= torch.maximum(best_t, best_tn) * (1.0 + band)))
+    if bool(near.any()):
+        tiles = torch.unique(torch.nonzero(near).flatten() // REF_TILE)
+        tw, gw, iw = _tile_walk(dbvh, o, d, t_max, torch.cat(pair_t, 1),
+                                torch.cat(pair_k, 1), pair_col, tiles)
+        rows = (tiles[:, None] * REF_TILE
+                + torch.arange(REF_TILE, device=dev)[None, :]).flatten()
+        keep = rows < B
+        rows, tw, gw, iw = rows[keep], tw.flatten()[keep], gw.flatten()[keep], \
+            iw.flatten()[keep]
+        sel = near[rows]
+        rows, tw, gw, iw = rows[sel], tw[sel], gw[sel], iw[sel]
+        t[rows], gk[rows], inst[rows] = tw, gw, iw
     return t, gk, inst, near
 
 

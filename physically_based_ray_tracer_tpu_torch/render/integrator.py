@@ -4,9 +4,26 @@ Every path vertex does one closest-hit traversal, one shading/NEE block with
 one batched occlusion traversal (plus the NP-ray point pass when
 ``one_shadow_ray`` is off), and one continuation sample. Lanes die by
 masking. The JAX package's ``lax.scan`` over bounces is a Python loop here,
-and its ``lax.cond`` gates are host checks (``alive.any()``): a bounce with
-no live lane is skipped, and a bounce where no live lane hit anything only
-settles the miss bookkeeping. Both change no result.
+and its ``lax.cond`` gates are host checks: a bounce with no live lane is
+skipped (``alive.any()``), and after the closest-hit pass the shading block
+is gated per slice of the wavefront (``_gated``: one slice at full width,
+or ``_snap_subtiles`` slices with ``shade_tile > 0``): a slice with no live
+lane passes through, and a slice where no live lane hit anything only
+settles the miss bookkeeping (sky radiance, primary depth). None of the
+gates changes a result.
+
+A missed live lane adds ``throughput * sample_skybox(sky, d)`` when
+``cfg.skybox`` is set and the scene has a sky image, in the shading block
+(lanes that missed, after the bf16-apron guard) and in the all-miss
+shortcut alike. AOV modes (``rendering_mode`` other than BRDF) shade the
+primary hit only (``render_aov``); ``post_processed`` casts the primary
+rays through the Panini projection.
+
+The zero-contribution shadow-ray pruning (a shadow ray whose summed light
+contribution is not > 0 gets tmax 0, in ``direct_lighting``) is the JAX
+package's, kept for parity: it assumes nonnegative light colours, and a
+light with a negative colour component renders as the JAX package renders
+it.
 
 Four engines are ported, dispatched as the JAX package dispatches them:
 ``traversal="pallas"`` with the bf16 engine (``leaf_precision="bf16"``, the
@@ -37,10 +54,11 @@ from physically_based_ray_tracer_tpu_torch.ops import (trace, trace_bf16, trace_
                                                       traverse_packet)
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
-from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
+from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays, sample_skybox
 from physically_based_ray_tracer_tpu_torch.scene.lights import sample_area_rect
 from physically_based_ray_tracer_tpu_torch.scene.material import (
-    gather_hit_attrs, material_packed, packed_tables, shading_normal_packed)
+    gather_hit_attrs, geometry_normal, material_at_hit, material_packed,
+    packed_tables, shading_normal, shading_normal_packed)
 from physically_based_ray_tracer_tpu_torch.utils import rng
 from physically_based_ray_tracer_tpu_torch.utils.math import (dot, reflect,
                                                               refract)
@@ -48,7 +66,10 @@ from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
 
 
 def check_supported(cfg: RenderConfig, scene=None) -> None:
-    """Raise NotImplementedError for every option this port does not carry."""
+    """Raise NotImplementedError for every option this port does not carry:
+    the "packet" and "lane" engines, a leaf precision other than bf16 /
+    f32, a wave leaf test other than mt / woop, the wave engine on a scene
+    without a classic BVH, and cross-device ray resharding."""
     if cfg.traversal not in ("pallas", "pallas_rows", "wave"):
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port carries the dense-BVH "
@@ -65,25 +86,9 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
         raise NotImplementedError(
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
             "and 'f32'")
-    if cfg.rendering_mode != RenderMode.BRDF:
-        raise NotImplementedError(
-            f"rendering_mode={cfg.rendering_mode!r}: AOV modes are not ported")
-    if cfg.post_processed:
-        raise NotImplementedError("post_processed=True: Panini projection and "
-                                  "post-processing are not ported")
-    if cfg.samples_per_pixel > 1:
-        raise NotImplementedError(
-            f"samples_per_pixel={cfg.samples_per_pixel}: in-frame multi-sample "
-            "batching is not ported")
-    if cfg.shade_tile > 0:
-        raise NotImplementedError(f"shade_tile={cfg.shade_tile}: sub-tile "
-                                  "shading gates are not ported")
     if cfg.reshard_axis is not None and cfg.reshard_ndev > 1:
         raise NotImplementedError("reshard_axis: cross-device ray resharding "
                                   "is not ported")
-    if scene is not None and cfg.skybox and scene.sky.shape[0] > 1:
-        raise NotImplementedError("skybox=True with a sky image: skydome "
-                                  "sampling is not ported")
 
 
 def _use_bf16(cfg: RenderConfig, dense) -> bool:
@@ -296,8 +301,160 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
     return result + other
 
 
+def _snap_subtiles(B: int, target_w: int) -> int:
+    """Sub-tile count for the gated shading block: the divisor of B whose
+    quotient is nearest ``target_w`` (cfg.shade_tile). 1 = full width
+    (disabled, or B too small to split)."""
+    if target_w <= 0 or B <= target_w:
+        return 1
+    s0 = max(1, round(B / target_w))
+    for ds in range(s0):
+        for s in (s0 + ds, s0 - ds):
+            if 1 < s <= B and B % s == 0:
+                return s
+    return 1
+
+
+def _has_sky(scene, cfg: RenderConfig) -> bool:
+    return cfg.skybox and scene.sky.shape[0] > 1
+
+
+_CARRY = ("o", "d", "radiance", "throughput", "alive", "primary_t")
+
+
+def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
+           depth: int) -> dict:
+    """The shading block of one vertex for a slice where some live lane hit:
+    refine, sky on the missed lanes, emission + NEE, continuation."""
+    o, d = lanes["o"], lanes["d"]
+    radiance, throughput = lanes["radiance"], lanes["throughput"]
+    alive, primary_t = lanes["alive"], lanes["primary_t"]
+    prim, found0, pixel_id = lanes["prim"], lanes["found0"], lanes["pixel_id"]
+
+    attrs = gather_hit_attrs(scene, packs, prim)
+    rt, ru, rv = refine_hit(o, d, attrs["v0"], attrs["e1"], attrs["e2"],
+                            mask=found0)
+    # bf16-apron guard: a winner more than the accept apron outside its
+    # triangle is a silhouette phantom, dropped; apron hits are clamped
+    # to the simplex. Both are no-ops for the exact f32 engine.
+    inside = torch.minimum(torch.minimum(ru, rv), 1.0 - ru - rv) > -0.02
+    found = found0 & inside
+    ru = torch.clamp(ru, 0.0, 1.0)
+    rv = torch.minimum(torch.clamp(rv, min=0.0), torch.clamp(1.0 - ru, min=0.0))
+    zero = torch.zeros_like(ru)
+    hit_t = torch.where(found, rt, lanes["hit_t"])
+    hit_u = torch.where(found, ru, zero)
+    hit_v = torch.where(found, rv, zero)
+    if depth == 0:
+        primary_t = hit_t
+    if _has_sky(scene, cfg):
+        miss = alive & ~found
+        radiance = radiance + torch.where(
+            miss[:, None], throughput * sample_skybox(scene.sky, d),
+            torch.zeros_like(radiance))
+    alive = alive & found
+
+    point = o + d * torch.where(found, hit_t, torch.ones_like(hit_t))[:, None]
+    v = -d
+    geom_n = attrs["face_n"]
+    shad_n = shading_normal_packed(scene, attrs, hit_u, hit_v, cfg.normal_mapped)
+    material = material_packed(scene, attrs, hit_u, hit_v)
+
+    vertex_rad = throughput * material.emissive
+    dl = direct_lighting(scene, cfg, point, shad_n, v, material, pixel_id,
+                         key, sample, depth, alive=alive)
+    vertex_rad = vertex_rad + throughput * dl
+
+    last = depth == cfg.bounces - 1
+    # the dielectric branch discards this vertex's own emissive+NEE,
+    # except at the last vertex
+    is_dielectric = (material.transmissivness == 1.0) & (not last)
+    radiance = radiance + torch.where((alive & ~is_dielectric)[:, None],
+                                      vertex_rad, torch.zeros_like(vertex_rad))
+
+    # dielectric continuation: Fresnel russian roulette
+    n1, n2 = 1.0, 1.46
+    cos_theta = torch.clamp(-dot(d, shad_n), 0.0, 1.0)
+    eta = n1 / n2
+    k = 1.0 - eta * eta * (1.0 - cos_theta * cos_theta)
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    fresnel = r0 + (1.0 - r0) * torch.pow(1.0 - cos_theta, 5.0)
+    fresnel = torch.where(k <= 0.0, torch.ones_like(fresnel), fresnel)
+    u_diel = rng.uniform1(key, pixel_id, sample, depth, Purpose.DIELECTRIC)
+    take_reflect = (u_diel < fresnel)[:, None]
+    diel_dir = torch.where(take_reflect, reflect(d, shad_n),
+                           refract(d, shad_n, eta))
+    diel_org = torch.where(take_reflect, point + shad_n * EPSILON,
+                           point - shad_n * EPSILON)
+
+    # lobe selection: mirror fast path + RIS lottery
+    is_mirror = (material.metalness == 1.0) & (material.roughness == 0.0)
+    p_spec = brdf_ops.get_brdf_probability(material, v, shad_n)
+    u_lobe = rng.uniform1(key, pixel_id, sample, depth, Purpose.LOBE_SELECT)
+    pick_spec = (u_lobe < p_spec) | is_mirror
+    lobe_div = torch.where(is_mirror, torch.ones_like(p_spec),
+                           torch.where(pick_spec, p_spec, 1.0 - p_spec))
+    brdf_type = torch.where(pick_spec, brdf_ops.SPECULAR_TYPE,
+                            brdf_ops.DIFFUSE_TYPE).to(torch.int32)
+    u2 = rng.uniform2(key, pixel_id, sample, depth, Purpose.BRDF_SAMPLE)
+    bounce_dir, weight, valid = brdf_ops.eval_indirect_combined_brdf(
+        u2, shad_n, geom_n, v, material, brdf_type, cfg.brdf)
+
+    w_scaled = weight / lobe_div[:, None]
+    diel = is_dielectric[:, None]
+    throughput = throughput * torch.where(diel, torch.ones_like(w_scaled), w_scaled)
+    o = torch.where(diel, diel_org, point + bounce_dir * EPSILON)
+    d = torch.where(diel, diel_dir, bounce_dir)
+    alive = alive & (is_dielectric | valid)
+    return dict(o=o, d=d, radiance=radiance, throughput=throughput, alive=alive,
+                primary_t=primary_t)
+
+
+def _skip_shade(scene, cfg: RenderConfig, lanes: dict, depth: int) -> dict:
+    """No lane of the slice hit anything: every live lane missed. Settle the
+    miss bookkeeping (sky radiance, primary depth) and kill the slice."""
+    out = {k: lanes[k] for k in _CARRY}
+    if depth == 0:
+        out["primary_t"] = lanes["hit_t"]
+    if _has_sky(scene, cfg):
+        out["radiance"] = out["radiance"] + torch.where(
+            lanes["alive"][:, None],
+            lanes["throughput"] * sample_skybox(scene.sky, lanes["d"]),
+            torch.zeros_like(out["radiance"]))
+    out["alive"] = torch.zeros_like(lanes["alive"])
+    return out
+
+
+def _dead_skip(lanes: dict, depth: int) -> dict:
+    """Nothing alive in the slice: pass-through (the primary-depth settle is
+    the identity from bounce 1 on, where alone a dead slice can occur)."""
+    out = {k: lanes[k] for k in _CARRY}
+    if depth == 0:
+        out["primary_t"] = lanes["hit_t"]
+    return out
+
+
+def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
+           depth: int, alive_known: bool = False) -> dict:
+    """The post-hit gate of one slice: dead -> pass-through, no hit ->
+    miss bookkeeping, else the shading block. ``alive_known``: the caller
+    has already seen a live lane (the full-width slice after the bounce
+    gate), so that host check is not repeated."""
+    if not alive_known and not bool(lanes["alive_in"].any()):
+        return _dead_skip(lanes, depth)
+    if not bool(lanes["found0"].any()):
+        return _skip_shade(scene, cfg, lanes, depth)
+    return _shade(scene, cfg, packs, lanes, key, sample, depth)
+
+
 def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int):
-    """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit)."""
+    """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit).
+
+    The closest-hit traversal runs at full width every bounce; the shading
+    block after it runs once at full width, or, with ``cfg.shade_tile > 0``,
+    once per slice of ``B / _snap_subtiles(B, shade_tile)`` lanes, each
+    behind its own gate (two host checks and its own sorted occlusion
+    pass), in order."""
     check_supported(cfg, scene)
     B = o.shape[0]
     dev = o.device
@@ -306,6 +463,8 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
     throughput = torch.ones((B, 3), dtype=o.dtype, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     primary_t = torch.full((B,), BVH_FAR, dtype=o.dtype, device=dev)
+    S = _snap_subtiles(B, cfg.shade_tile)
+    n = B // S
 
     for depth in range(cfg.bounces):
         if not bool(alive.any()):
@@ -313,84 +472,20 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
         hit = _closest(scene, cfg, o, d, t_init, sort=True, refine="fast")
-        prim = hit.prim.clamp(min=0).long()
-        found0 = hit.prim >= 0
-        if depth == 0:
-            primary_t = hit.t
-        if not bool(found0.any()):
-            alive = torch.zeros_like(alive)   # every live lane missed
-            continue
-
-        attrs = gather_hit_attrs(scene, packs, prim)
-        rt, ru, rv = refine_hit(o, d, attrs["v0"], attrs["e1"], attrs["e2"],
-                                mask=found0)
-        # bf16-apron guard: a winner more than the accept apron outside its
-        # triangle is a silhouette phantom, dropped; apron hits are clamped
-        # to the simplex. Both are no-ops for the exact f32 engine.
-        inside = torch.minimum(torch.minimum(ru, rv), 1.0 - ru - rv) > -0.02
-        found = found0 & inside
-        ru = torch.clamp(ru, 0.0, 1.0)
-        rv = torch.minimum(torch.clamp(rv, min=0.0), torch.clamp(1.0 - ru, min=0.0))
-        zero = torch.zeros_like(ru)
-        hit_t = torch.where(found, rt, hit.t)
-        hit_u = torch.where(found, ru, zero)
-        hit_v = torch.where(found, rv, zero)
-        if depth == 0:
-            primary_t = hit_t
-        alive = alive & found
-
-        point = o + d * torch.where(found, hit_t, torch.ones_like(hit_t))[:, None]
-        v = -d
-        geom_n = attrs["face_n"]
-        shad_n = shading_normal_packed(scene, attrs, hit_u, hit_v, cfg.normal_mapped)
-        material = material_packed(scene, attrs, hit_u, hit_v)
-
-        vertex_rad = throughput * material.emissive
-        dl = direct_lighting(scene, cfg, point, shad_n, v, material, pixel_id,
-                             key, sample, depth, alive=alive)
-        vertex_rad = vertex_rad + throughput * dl
-
-        last = depth == cfg.bounces - 1
-        # the dielectric branch discards this vertex's own emissive+NEE,
-        # except at the last vertex
-        is_dielectric = (material.transmissivness == 1.0) & (not last)
-        radiance = radiance + torch.where((alive & ~is_dielectric)[:, None],
-                                          vertex_rad, torch.zeros_like(vertex_rad))
-
-        # dielectric continuation: Fresnel russian roulette
-        n1, n2 = 1.0, 1.46
-        cos_theta = torch.clamp(-dot(d, shad_n), 0.0, 1.0)
-        eta = n1 / n2
-        k = 1.0 - eta * eta * (1.0 - cos_theta * cos_theta)
-        r0 = ((n1 - n2) / (n1 + n2)) ** 2
-        fresnel = r0 + (1.0 - r0) * torch.pow(1.0 - cos_theta, 5.0)
-        fresnel = torch.where(k <= 0.0, torch.ones_like(fresnel), fresnel)
-        u_diel = rng.uniform1(key, pixel_id, sample, depth, Purpose.DIELECTRIC)
-        take_reflect = (u_diel < fresnel)[:, None]
-        diel_dir = torch.where(take_reflect, reflect(d, shad_n),
-                               refract(d, shad_n, eta))
-        diel_org = torch.where(take_reflect, point + shad_n * EPSILON,
-                               point - shad_n * EPSILON)
-
-        # lobe selection: mirror fast path + RIS lottery
-        is_mirror = (material.metalness == 1.0) & (material.roughness == 0.0)
-        p_spec = brdf_ops.get_brdf_probability(material, v, shad_n)
-        u_lobe = rng.uniform1(key, pixel_id, sample, depth, Purpose.LOBE_SELECT)
-        pick_spec = (u_lobe < p_spec) | is_mirror
-        lobe_div = torch.where(is_mirror, torch.ones_like(p_spec),
-                               torch.where(pick_spec, p_spec, 1.0 - p_spec))
-        brdf_type = torch.where(pick_spec, brdf_ops.SPECULAR_TYPE,
-                                brdf_ops.DIFFUSE_TYPE).to(torch.int32)
-        u2 = rng.uniform2(key, pixel_id, sample, depth, Purpose.BRDF_SAMPLE)
-        bounce_dir, weight, valid = brdf_ops.eval_indirect_combined_brdf(
-            u2, shad_n, geom_n, v, material, brdf_type, cfg.brdf)
-
-        w_scaled = weight / lobe_div[:, None]
-        diel = is_dielectric[:, None]
-        throughput = throughput * torch.where(diel, torch.ones_like(w_scaled), w_scaled)
-        o = torch.where(diel, diel_org, point + bounce_dir * EPSILON)
-        d = torch.where(diel, diel_dir, bounce_dir)
-        alive = alive & (is_dielectric | valid)
+        lanes = dict(o=o, d=d, radiance=radiance, throughput=throughput,
+                     alive=alive, primary_t=primary_t, hit_t=hit.t,
+                     prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
+                     alive_in=alive, pixel_id=pixel_id)
+        if S == 1:
+            out = _gated(scene, cfg, packs, lanes, key, sample, depth,
+                         alive_known=True)
+        else:
+            parts = [_gated(scene, cfg, packs,
+                            {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
+                            key, sample, depth)
+                     for i in range(S)]
+            out = {k: torch.cat([p[k] for p in parts]) for k in _CARRY}
+        o, d, radiance, throughput, alive, primary_t = (out[k] for k in _CARRY)
 
     neg1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
     zero = torch.zeros((B,), dtype=o.dtype, device=dev)
@@ -398,19 +493,62 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
                          inst=neg1.clone())
 
 
+def render_aov(scene, cfg: RenderConfig, o, d):
+    """Debug AOV views of the primary hits (``cfg.rendering_mode`` other
+    than BRDF), through the unsorted closest-hit pass with its exact hit
+    record. DEPTH is normalised by the batch's largest hit distance (the
+    batch is a chunk of the frame); PRIMID hashes the prim id with a uint32
+    multiply (done in int64, masked to 32 bits). Returns (color (B,3), Hit)."""
+    hit = _closest(scene, cfg, o, d)
+    prim = hit.prim.clamp(min=0).long()
+    ok = (hit.prim >= 0)[:, None]
+    ones = torch.ones((1, 3), dtype=o.dtype, device=o.device)
+    mode = cfg.rendering_mode
+    if mode == RenderMode.BASECOLOR:
+        out = material_at_hit(scene, prim, hit.u, hit.v).base_color
+    elif mode == RenderMode.METAL:
+        out = material_at_hit(scene, prim, hit.u, hit.v).metalness[:, None] * ones
+    elif mode == RenderMode.ROUGHNESS:
+        out = material_at_hit(scene, prim, hit.u, hit.v).roughness[:, None] * ones
+    elif mode == RenderMode.EMMISIVE:
+        out = material_at_hit(scene, prim, hit.u, hit.v).emissive
+    elif mode == RenderMode.GEOMETRYNORMAL:
+        out = (geometry_normal(scene, prim) + 1.0) * 0.5
+    elif mode == RenderMode.SHADINGNORMAL:
+        out = (shading_normal(scene, prim, hit.u, hit.v, cfg.normal_mapped) + 1.0) * 0.5
+    elif mode == RenderMode.DEPTH:
+        t = torch.where(hit.prim >= 0, hit.t, torch.zeros_like(hit.t))
+        out = (t / torch.clamp(torch.max(t), min=1e-9))[:, None] * ones
+    elif mode == RenderMode.PRIMID:
+        # lanes without a hit are masked below, so the clamped prim is safe
+        h = (prim * 2654435761) & 0xFFFFFFFF
+        out = torch.stack([h & 0xFF, (h >> 8) & 0xFF, (h >> 16) & 0xFF],
+                          dim=-1).to(torch.float32) / 255.0
+    else:
+        raise ValueError(mode)
+    return torch.where(ok, out, torch.zeros_like(out)), hit
+
+
 def render_sample(scene, cam, cfg: RenderConfig, key: int, sample: int,
                   pixel_ids: torch.Tensor):
     """One sample for a batch of pixels: primary ray at integer pixel
-    coords, plus a jittered AA ray averaged 50/50 (both traced in one
-    doubled batch, the second with pixel ids offset by n_pixels).
-    Returns (color (B,3), primary_t (B,))."""
+    coords (through the Panini projection when ``cfg.post_processed``),
+    plus a jittered AA ray averaged 50/50 (both traced in one doubled
+    batch, the second with pixel ids offset by n_pixels); an AOV mode
+    shades the primary ray's hit only. Returns (color (B,3), primary_t (B,))."""
+    check_supported(cfg, scene)
     xs = torch.remainder(pixel_ids, cfg.width).to(torch.float32)
     ys = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
-    o1, d1 = primary_rays(cam, xs, ys, cfg.width, cfg.height)
+    panini = cfg.post_processed
+    o1, d1 = primary_rays(cam, xs, ys, cfg.width, cfg.height, panini=panini)
+    if cfg.rendering_mode != RenderMode.BRDF:
+        color, hit = render_aov(scene, cfg, o1, d1)
+        return color, hit.t
     if cfg.antialias:
         b = pixel_ids.shape[0]
         j = rng.uniform2(key, pixel_ids, sample, 0, Purpose.AA_JITTER)
-        o2, d2 = primary_rays(cam, xs + j[:, 0], ys + j[:, 1], cfg.width, cfg.height)
+        o2, d2 = primary_rays(cam, xs + j[:, 0], ys + j[:, 1], cfg.width,
+                              cfg.height, panini=panini)
         o = torch.cat([o1, o2])
         d = torch.cat([d1, d2])
         pid2 = torch.cat([pixel_ids, pixel_ids + cfg.n_pixels])

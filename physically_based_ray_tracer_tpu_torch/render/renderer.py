@@ -1,9 +1,12 @@
 """Frame orchestration; counterpart of ``physically_based_ray_tracer_tpu/render/renderer.py``.
 
-``frame_fn`` renders one sample of a pixel subset in sequential wavefront
-chunks of ``cfg.chunk_pixels`` (bounding live device memory) and folds it
-into the film. ``Renderer`` owns the film on one device and returns display
-images. PyTorch runs eagerly, so there is no compiled frame function.
+``frame_fn`` renders one frame of a pixel subset (``cfg.samples_per_pixel``
+in-frame samples averaged, ``_render_spp``) in sequential wavefront chunks
+of ``cfg.chunk_pixels`` (bounding live device memory) and folds it into the
+film. ``Renderer`` owns the film on one device, times each tick
+(``stats``), returns display images (post-processed on its device when
+``cfg.post_processed``) and captures them to PNG. PyTorch runs eagerly, so
+there is no compiled frame function.
 """
 
 from __future__ import annotations
@@ -12,28 +15,50 @@ import numpy as np
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig
+from physically_based_ray_tracer_tpu_torch.ops.tonemap import POST_PRESETS, post_process
 from physically_based_ray_tracer_tpu_torch.render import film as film_mod
 from physically_based_ray_tracer_tpu_torch.render.integrator import (
     check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.utils import image as image_utils
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+from physically_based_ray_tracer_tpu_torch.utils.timer import (DeviceTimer, FrameStats,
+                                                               ray_count)
+
+
+def _render_spp(scene, cam, cfg: RenderConfig, key: int, sample: int,
+                pixel_ids: torch.Tensor):
+    """render_sample averaged over cfg.samples_per_pixel in-frame samples
+    (sample index ``sample * spp + s``); the primary t is sample 0's."""
+    spp = max(1, cfg.samples_per_pixel)
+    if spp == 1:
+        return render_sample(scene, cam, cfg, key, sample, pixel_ids)
+    acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
+                      device=pixel_ids.device)
+    t0 = None
+    for s in range(spp):
+        c, t = render_sample(scene, cam, cfg, key, sample * spp + s, pixel_ids)
+        acc = acc + c
+        if s == 0:
+            t0 = t
+    return acc / spp, t0
 
 
 def render_chunked(scene, cam, cfg: RenderConfig, key: int, sample: int,
                    pixel_ids: torch.Tensor):
-    """render_sample over sequential chunks; returns (color (B,3), t (B,)).
+    """_render_spp over sequential chunks; returns (color (B,3), t (B,)).
     The last chunk is edge-padded to the common chunk size, as the JAX
     package pads its ``lax.map`` input."""
     b = pixel_ids.shape[0]
     if b <= cfg.chunk_pixels:
-        return render_sample(scene, cam, cfg, key, sample, pixel_ids)
+        return _render_spp(scene, cam, cfg, key, sample, pixel_ids)
     n_chunks = -(-b // cfg.chunk_pixels)
     chunk = -(-b // n_chunks)
     padded = chunk * n_chunks
     ids = torch.cat([pixel_ids, pixel_ids[-1:].expand(padded - b)])
     colors, ts = [], []
     for c in range(n_chunks):
-        col, t = render_sample(scene, cam, cfg, key, sample,
-                               ids[c * chunk:(c + 1) * chunk])
+        col, t = _render_spp(scene, cam, cfg, key, sample,
+                             ids[c * chunk:(c + 1) * chunk])
         colors.append(col)
         ts.append(t)
     return torch.cat(colors)[:b], torch.cat(ts)[:b]
@@ -79,7 +104,10 @@ class Renderer:
     (see ``integrator.check_supported``).
 
     ``key`` is the integer seed the JAX package would pass as
-    ``jax.random.key(key)``; images are pixel-for-pixel comparable."""
+    ``jax.random.key(key)``; images are pixel-for-pixel comparable.
+    ``stats`` holds the last tick's time (``DeviceTimer``: the device's
+    queue drained at both ends, the film fetched to the host inside) and
+    its ray count (``utils.timer.ray_count``)."""
 
     def __init__(self, scene, camera, config: RenderConfig,
                  device=DEFAULT_DEVICE):
@@ -89,6 +117,7 @@ class Renderer:
         self.camera = camera.to(self.device)
         self.config = config
         self.film = film_mod.FilmState.zeros(config.n_pixels, device=self.device)
+        self.stats = FrameStats()
         self.sample = 0
         if config.pixel_order == "morton":
             self._pixel_ids_np = morton_pixel_order(config.width, config.height)
@@ -102,18 +131,33 @@ class Renderer:
         self.sample = 0
 
     def tick(self, key: int = 0) -> np.ndarray:
-        """Render one frame (1 sample/pixel [+AA]), update accumulation, and
-        return the display image (H, W, 3) float in [0, 1]."""
-        self.film, avg = frame_fn(self.scene, self.camera, self.film, key,
-                                  self.sample, self._pixel_ids, cfg=self.config)
+        """Render one frame (``samples_per_pixel`` samples/pixel [+AA]),
+        update accumulation, and return the display image (H, W, 3) float
+        in [0, 1]."""
+        with DeviceTimer(self.device) as t:
+            self.film, avg = frame_fn(self.scene, self.camera, self.film, key,
+                                      self.sample, self._pixel_ids,
+                                      cfg=self.config)
+            avg = avg.cpu().numpy()
         self.sample += 1
-        return self._assemble(avg.cpu().numpy())
+        self.stats.update(t.ms, ray_count(self.config, self.config.n_pixels,
+                                          n_point_lights=self.scene.lights.n_point))
+        return self._assemble(avg)
 
     def _assemble(self, avg_flat: np.ndarray) -> np.ndarray:
-        """Scatter film-order samples back into raster order."""
+        """Scatter film-order samples back into raster order, post-process
+        (on the Renderer's device) when ``post_processed``, clip to [0, 1]."""
         img_flat = np.empty_like(avg_flat)
         img_flat[self._pixel_ids_np] = avg_flat
         img = img_flat.reshape(self.config.height, self.config.width, 3)
+        if self.config.post_processed:
+            pp = POST_PRESETS.get(self.config.post_preset, POST_PRESETS[2])
+            img = post_process(
+                torch.from_numpy(img).to(self.device),
+                aberration_intensity=pp["aberration_intensity"],
+                vignette_intensity=pp["vignette_intensity"],
+                vignette_radius=pp["vignette_radius"],
+                grading=pp["grading"]).cpu().numpy()
         return np.clip(img, 0.0, 1.0)
 
     def render(self, samples: int = 1, seed: int = 0) -> np.ndarray:
@@ -122,3 +166,17 @@ class Renderer:
         for _ in range(samples):
             img = self.tick(seed)
         return img
+
+    def capture(self, path: str | None = None) -> str:
+        """Write the current image as PNG (one frame rendered first if none
+        has been); returns the path. ``path`` defaults to a timestamped
+        name under ``assets/captures`` (``utils.image.capture_path``)."""
+        img = self.render(samples=1) if self.sample == 0 else self._current_image()
+        path = path or image_utils.capture_path()
+        return image_utils.write_png(path, img)
+
+    def _current_image(self) -> np.ndarray:
+        """The film's running mean as a display image."""
+        avg = self.film.accum.cpu().numpy() / np.maximum(
+            self.film.spp.cpu().numpy()[:, None], 1.0)
+        return self._assemble(avg)

@@ -3,11 +3,14 @@
 Point lights (color * cos / dist falloff), a directional light evaluated
 toward a position, a spot light with a hard dot(L, rot) > 0.9 cone, and
 rectangular area lights. Counts are the tensors' leading sizes.
+``lights_from_reference_json`` reads the reference's light JSON directories.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
@@ -105,3 +108,48 @@ def sample_area_rect(lights: LightSet, idx: torch.Tensor, u2: torch.Tensor):
     n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-20)
     pdf = 1.0 / torch.clamp(area, min=1e-20)
     return p, n, pdf
+
+
+def lights_from_reference_json(scene_dir: str, device=DEFAULT_DEVICE) -> LightSet:
+    """Assemble a LightSet on ``device`` from reference-format JSON
+    directories (``{pointlights,directionallights,spotlights,arealights}/``
+    of a scene directory, files in sorted order): position ``pX..pZ``,
+    colour ``cX..cZ``, spot axis ``rX..rZ``; area lights get unit half-edges
+    along x and z."""
+
+    def read_dir(sub):
+        d = os.path.join(scene_dir, sub)
+        out = []
+        if os.path.isdir(d):
+            for f in sorted(os.listdir(d)):
+                if f.endswith(".json"):
+                    with open(os.path.join(d, f)) as fh:
+                        out.append(json.load(fh))
+        return out
+
+    def pcr(rec, k1, k2, k3):
+        return [rec.get(k1, 0.0), rec.get(k2, 0.0), rec.get(k3, 0.0)]
+
+    points = read_dir("pointlights")
+    dirs = read_dir("directionallights")
+    spots = read_dir("spotlights")
+    areas = read_dir("arealights")
+
+    def stack(recs, keys):
+        if not recs:
+            return None
+        return np.asarray([pcr(r, *keys) for r in recs], np.float32)
+
+    return LightSet.make(
+        point_pos=stack(points, ("pX", "pY", "pZ")),
+        point_color=stack(points, ("cX", "cY", "cZ")),
+        dir_pos=stack(dirs, ("pX", "pY", "pZ")),
+        dir_color=stack(dirs, ("cX", "cY", "cZ")),
+        spot_pos=stack(spots, ("pX", "pY", "pZ")),
+        spot_color=stack(spots, ("cX", "cY", "cZ")),
+        spot_rot=stack(spots, ("rX", "rY", "rZ")),
+        area_pos=stack(areas, ("pX", "pY", "pZ")),
+        area_color=stack(areas, ("cX", "cY", "cZ")),
+        area_u=(np.tile([1.0, 0, 0], (len(areas), 1)).astype(np.float32) if areas else None),
+        area_v=(np.tile([0, 0, 1.0], (len(areas), 1)).astype(np.float32) if areas else None),
+        device=device)

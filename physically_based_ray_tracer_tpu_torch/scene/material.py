@@ -1,6 +1,9 @@
 """Hit-point shading queries; counterpart of ``physically_based_ray_tracer_tpu/scene/material.py``.
 
-The packed-table path: per-prim attributes are concatenated once per trace
+Two paths give the same values. The unpacked queries (``interpolate_uv``,
+``geometry_normal``, ``shading_normal``, ``material_at_hit``) gather each
+attribute by prim from the SoA tables; the AOV views use them. The
+packed-table path, which the integrator's bounces use: per-prim attributes are concatenated once per trace
 into a (P, 51) row (geometry, shading corners, per-prim material) so each
 bounce gathers one row per hit, or into three packs for scenes above
 MERGED_PACK_MAX_PRIMS. Texture taps are nearest-neighbour texel fetches
@@ -58,6 +61,81 @@ def fetch_texel(pool: torch.Tensor, record: torch.Tensor, uv: torch.Tensor):
     iv = torch.remainder((uv[..., 1] * hs).to(torch.int32), hs)
     idx = torch.clamp(offset, min=0) + iu + iv * ws
     return _take(pool, idx.to(torch.int64)), has
+
+
+def interpolate_uv(scene, prim: torch.Tensor, u, v) -> torch.Tensor:
+    """Barycentric UV: w*uv[c0] + u*uv[c1] + v*uv[c2]."""
+    c0 = prim.long() * 3
+    w = 1.0 - u - v
+    uv0 = _take(scene.corner_uv, c0)
+    uv1 = _take(scene.corner_uv, c0 + 1)
+    uv2 = _take(scene.corner_uv, c0 + 2)
+    return w[..., None] * uv0 + u[..., None] * uv1 + v[..., None] * uv2
+
+
+def geometry_normal(scene, prim: torch.Tensor) -> torch.Tensor:
+    """World-space face normal (transforms are baked at scene build)."""
+    return _take(scene.face_normal, prim.long())
+
+
+def shading_normal(scene, prim: torch.Tensor, u, v,
+                   normal_mapped: bool = True) -> torch.Tensor:
+    """Interpolated vertex normal with optional TBN normal mapping."""
+    prim = prim.long()
+    c0 = prim * 3
+    w = 1.0 - u - v
+    n0 = _take(scene.corner_normal, c0)
+    n1 = _take(scene.corner_normal, c0 + 1)
+    n2 = _take(scene.corner_normal, c0 + 2)
+    n = w[..., None] * n0 + u[..., None] * n1 + v[..., None] * n2
+    if not normal_mapped:
+        return normalize(n)
+    model = _take(scene.prim_model, prim).long()
+    rec = _take(scene.tex_record, model)[..., TEX_NORMAL, :]
+    uv = interpolate_uv(scene, prim, u, v)
+    texel, has = fetch_texel(scene.texel_pool, rec, uv)
+    ncol = _decode_normal(texel)
+    # tangent frame from world edges + uv deltas
+    e1 = _take(scene.tri_e1, prim)
+    e2 = _take(scene.tri_e2, prim)
+    uv0 = _take(scene.corner_uv, c0)
+    duv1 = _take(scene.corner_uv, c0 + 1) - uv0
+    duv2 = _take(scene.corner_uv, c0 + 2) - uv0
+    det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det,
+                                torch.full_like(det, 1e-12))
+    t = normalize(inv_det[..., None] * (duv2[..., 1:2] * e1 - duv1[..., 1:2] * e2))
+    b = normalize(inv_det[..., None] * (-duv2[..., 0:1] * e1 + duv1[..., 0:1] * e2))
+    nw = normalize(n)
+    mapped = normalize(ncol[..., 0:1] * t + ncol[..., 1:2] * b + ncol[..., 2:3] * nw)
+    return torch.where(has[..., None], mapped, nw)
+
+
+def material_at_hit(scene, prim: torch.Tensor, u, v) -> MaterialProperties:
+    """Material fetch: per-model constants, overridden by the albedo, RMA
+    (G = roughness, B = metalness) and emission textures where present."""
+    prim = prim.long()
+    model = _take(scene.prim_model, prim).long()
+    uv = interpolate_uv(scene, prim, u, v)
+    recs = _take(scene.tex_record, model)          # (..., 4, 3)
+    albedo_texel, has_albedo = fetch_texel(scene.texel_pool,
+                                           recs[..., TEX_ALBEDO, :], uv)
+    base_tex = srgb_to_linear(_decode_rgb(albedo_texel))
+    base = torch.where(has_albedo[..., None], base_tex,
+                       _take(scene.mat_base, model))
+    rma_texel, has_rma = fetch_texel(scene.texel_pool, recs[..., TEX_RMA, :], uv)
+    rma = _decode_rgb(rma_texel)
+    rough = torch.where(has_rma, rma[..., 1], _take(scene.mat_rough, model))
+    metal = torch.where(has_rma, rma[..., 2], _take(scene.mat_metal, model))
+    emis_texel, has_emis = fetch_texel(scene.texel_pool,
+                                       recs[..., TEX_EMISSION, :], uv)
+    emissive = torch.where(has_emis[..., None], _decode_rgb(emis_texel),
+                           _take(scene.mat_emissive, model))
+    return MaterialProperties(
+        base_color=base, metalness=metal, emissive=emissive, roughness=rough,
+        transmissivness=_take(scene.mat_transmissive, model),
+        reflectance=_take(scene.mat_reflectance, model),
+        opacity=_take(scene.mat_opacity, model))
 
 
 def packed_tables(scene):

@@ -61,3 +61,45 @@ def make_quad(p0, p1, p2, p3):
     faces = np.asarray([[0, 1, 2], [0, 2, 3]], np.int64)
     uvs = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64)
     return _fat(verts, faces, None, uvs)
+
+
+def make_box(bmin, bmax, inward=False):
+    """Axis-aligned box, faces wound outward (or inward for a room)."""
+    x0, y0, z0 = bmin
+    x1, y1, z1 = bmax
+    quads = [
+        ([x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1]),  # +z
+        ([x1, y0, z0], [x0, y0, z0], [x0, y1, z0], [x1, y1, z0]),  # -z
+        ([x1, y0, z1], [x1, y0, z0], [x1, y1, z0], [x1, y1, z1]),  # +x
+        ([x0, y0, z0], [x0, y0, z1], [x0, y1, z1], [x0, y1, z0]),  # -x
+        ([x0, y1, z1], [x1, y1, z1], [x1, y1, z0], [x0, y1, z0]),  # +y
+        ([x0, y0, z0], [x1, y0, z0], [x1, y0, z1], [x0, y0, z1]),  # -y
+    ]
+    parts = [make_quad(*q) for q in quads]
+    if inward:
+        parts = [(p[0].reshape(-1, 3, 3)[:, ::-1].reshape(-1, 3), -p[1], p[2], -p[3])
+                 for p in parts]
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(4))
+
+
+def make_cornell_walls(size=1.0):
+    """Cornell-style room: white floor/ceiling/back, red left, green right.
+
+    Returns list of (fat_arrays, base_color) so callers can assign materials
+    per wall. Camera looks down -z into the open front.
+    """
+    s = size
+    white = (0.73, 0.73, 0.73)
+    red = (0.65, 0.05, 0.05)
+    green = (0.12, 0.45, 0.15)
+    # wound so face normals point INTO the room (the camera side): an
+    # outward normal makes every clamped dot(N, L) zero and the interior
+    # renders black (the Cornell golden pins this)
+    walls = [
+        (make_quad([-s, -s, -s], [-s, -s, s], [s, -s, s], [s, -s, -s]), white),   # floor
+        (make_quad([-s, s, s], [-s, s, -s], [s, s, -s], [s, s, s]), white),        # ceiling
+        (make_quad([-s, -s, -s], [s, -s, -s], [s, s, -s], [-s, s, -s]), white),    # back
+        (make_quad([-s, -s, s], [-s, -s, -s], [-s, s, -s], [-s, s, s]), red),      # left
+        (make_quad([s, -s, -s], [s, -s, s], [s, s, s], [s, s, -s]), green),        # right
+    ]
+    return walls

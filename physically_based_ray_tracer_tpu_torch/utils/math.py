@@ -20,6 +20,10 @@ def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1, keepdim=True)
 
 
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize: v/|v| with a tiny clamp against /0 (zero stays zero)."""
     n2 = torch.sum(v * v, dim=-1, keepdim=True)

@@ -23,11 +23,13 @@ from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays  # noqa: E402
-from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.config import RenderConfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
 from physically_based_ray_tracer_tpu_torch.render.film import FilmState  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene import lights as lights_mod  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene import loader, presets  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene import scene as tscene  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene.camera import Camera, primary_rays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet  # noqa: E402
@@ -50,6 +52,10 @@ def test_port_imports_no_jax():
     assert "physically_based_ray_tracer_tpu_torch.ops.trace" in mods
     assert "physically_based_ray_tracer_tpu_torch.ops.trace_bf16" in mods
     assert "physically_based_ray_tracer_tpu_torch.ops.trace_rows" in mods
+    for m in ("cli", "ops.tonemap", "utils.image", "utils.timer", "models.obj",
+              "models.gltf", "models.textures", "models.resources",
+              "scene.serialization", "scene.loader", "scene.presets"):
+        assert f"physically_based_ray_tracer_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -88,11 +94,6 @@ def test_config_mirrors_jax():
     (dict(leaf_precision="fp16"), "leaf_precision"),
     (dict(traversal="packet"), "traversal"),
     (dict(traversal="lane"), "traversal"),
-    (dict(rendering_mode=RenderMode.BASECOLOR), "rendering_mode"),
-    (dict(rendering_mode=RenderMode.DEPTH), "rendering_mode"),
-    (dict(post_processed=True), "post_processed"),
-    (dict(samples_per_pixel=2), "samples_per_pixel"),
-    (dict(shade_tile=64), "shade_tile"),
     (dict(reshard_axis="x", reshard_ndev=2), "reshard_axis"),
 ])
 def test_unported_options_raise(kw, name):
@@ -111,19 +112,21 @@ def test_unported_options_raise(kw, name):
 
 
 def test_default_config_and_sky_raise():
-    """RenderConfig's default engine (bf16) is taken; a real sky image is
-    refused."""
+    """RenderConfig's default engine (bf16) is taken; a scene with a sky
+    image renders with skybox=True, and the Panini projection runs: neither
+    raises any more."""
     jscene, jcam = instanced_scene()
     scene, cam = port_scene(jscene), port_camera(jcam)
     r = Renderer(scene, cam, RenderConfig(width=8, height=8), device="cpu")
     assert r.config.leaf_precision == "bf16"
     sky_scene = dataclasses.replace(scene, sky=torch.ones((4, 8, 3)))
-    cfg = port_config(SLICE_CFG)
-    with pytest.raises(NotImplementedError, match="skybox"):
-        Renderer(sky_scene, cam, cfg.replace(skybox=True), device="cpu")
-    Renderer(sky_scene, cam, cfg.replace(skybox=False), device="cpu")   # sky unused: fine
-    with pytest.raises(NotImplementedError, match="Panini"):
-        primary_rays(cam, torch.zeros(2), torch.zeros(2), 8, 8, panini=True)
+    cfg = port_config(SLICE_CFG).replace(width=4, height=4)
+    check_supported(cfg.replace(skybox=True), sky_scene)
+    img = Renderer(sky_scene, cam, cfg.replace(skybox=True), device="cpu").tick()
+    dark = Renderer(sky_scene, cam, cfg.replace(skybox=False), device="cpu").tick()
+    assert np.isfinite(img).all() and (img >= dark).all() and (img > dark).any()
+    _, d = primary_rays(cam, torch.zeros(2), torch.zeros(2), 8, 8, panini=True)
+    assert np.isfinite(d.numpy()).all()
 
 
 @pytest.mark.parametrize("leaf_precision", ["bf16", "f32"])
@@ -163,6 +166,13 @@ def _entry_points():
             d["nodes16"], d["groups"], d["inst16"], d["prim_base"], d["world_lo"],
             d["world_hi"])),
         "FilmState.zeros": (FilmState.zeros, lambda: FilmState.zeros(16)),
+        "sphere_demo": (presets.sphere_demo, presets.sphere_demo),
+        "cornell_box": (presets.cornell_box, presets.cornell_box),
+        "load_reference_scene": (loader.load_reference_scene,
+                                 lambda: loader.load_reference_scene(str(ROOT / "absent"))),
+        "lights_from_reference_json": (
+            lights_mod.lights_from_reference_json,
+            lambda: lights_mod.lights_from_reference_json(str(ROOT / "absent"))),
         "BVHArrays.from_numpy": (BVHArrays.from_numpy, lambda: BVHArrays.from_numpy(
             np.zeros((1, 12)), np.zeros((1, 2)), np.zeros((16, 9)), np.zeros(16))),
     }
@@ -170,7 +180,9 @@ def _entry_points():
 
 ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scene",
                 "build_scene_instanced", "Camera.make", "LightSet.make",
-                "DenseBVH.from_numpy", "FilmState.zeros", "BVHArrays.from_numpy"]
+                "DenseBVH.from_numpy", "FilmState.zeros", "BVHArrays.from_numpy",
+                "sphere_demo", "cornell_box", "load_reference_scene",
+                "lights_from_reference_json"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

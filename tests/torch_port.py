@@ -4,8 +4,10 @@ small two-level instanced scene built identically by both packages."""
 
 import dataclasses
 import enum
+import os
 
 import numpy as np
+import torch
 
 from physically_based_ray_tracer_tpu.config import RenderConfig
 from physically_based_ray_tracer_tpu.scene.camera import Camera as JCamera
@@ -20,6 +22,15 @@ from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
 from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance,
                                                                MeshModel,
                                                                scene_from_numpy)
+
+# One intra-op thread per test process: the test suite runs several
+# processes side by side on the host's cores, and PyTorch's default (a
+# thread per core in each process) oversubscribes them; the port's tests
+# run many small-tensor operations that gain nothing from more threads.
+torch.set_num_threads(1)
+
+# the repository's 32x16 HDR sky fixture (tests/test_golden_configs.py)
+SKY_FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "sky_32x16.hdr")
 
 # The whole slice at test size: 2 bounces, AA, one shadow ray, f32 engine.
 SLICE_CFG = RenderConfig(width=16, height=16, bounces=2, antialias=True,
@@ -100,9 +111,21 @@ def instanced_parts():
     return [sphere, floor], instances, lights, cam
 
 
-def instanced_scene():
-    """The JAX package's two-level build of instanced_parts()."""
+def instanced_scene(sky=None):
+    """The JAX package's two-level build of instanced_parts() (with the sky
+    image ``sky``, if given)."""
     models, instances, lights, cam = instanced_parts()
-    scene, _, _ = build_scene_instanced(models, instances, lights,
+    scene, _, _ = build_scene_instanced(models, instances, lights, sky=sky,
                                         legacy_bvh=False, flatten=False)
     return scene, cam
+
+
+def lone_sphere_scene(sky=None):
+    """One instanced sphere seen from outside, in the JAX package's types:
+    every bounce ray leaves a convex surface, so from bounce 1 on every
+    live lane misses (the integrator's all-miss shortcut)."""
+    models, _, lights, _ = instanced_parts()
+    scene, _, _ = build_scene_instanced(
+        models[:1], [JInstance(0, rotation=(0.2, 0.4, 0.0))], lights, sky=sky,
+        legacy_bvh=False, flatten=False)
+    return scene, JCamera.make(pos=(0.5, 1.0, 3.5), target=(0, 0, 0))
