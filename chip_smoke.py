@@ -151,7 +151,50 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    --height 720 --spp 2 --post --out build/cli_cornell.png``: exit 0 and
    the file written. Every frame time is printed with the card's name and
    power limit;
-12. prints the kernels' JSON line, the card line and, last,
+12. the dynamic-scene path (after 11, before 9), on the bench frame in its
+   two-level layout (``build_bench_scene(flatten=False,
+   return_handle=True)``): (a) 8 frames in which the nine spheres orbit
+   the origin (``animate.orbit``, radius DYN_ORBIT) over the still floor:
+   each frame ``rebuild_scene`` (host clock, device sync) and a
+   from-scratch ``build_scene_instanced`` of the same instances (timed the
+   same way), then a ``tick``: the refreshed tables equal the fresh
+   build's byte for byte (every dense tensor, the derived tables and stack
+   need, the shading arrays), the BLAS-side tensors are the objects the
+   first table had; on frames DYN_IMAGE_FRAMES the frame equals the fresh
+   build's frame bit for bit, and the previous frame's scene, rendered
+   again, equals its own frame;
+   B2 launched in both modes, no plain version called; the same motion on
+   the ``legacy_bvh=True`` build for 2 frames (the classic tree rebuilt on
+   the host, timed; every other table equal to a fresh build's, the
+   classic tree's node count, topology and largest box difference printed)
+   and one wave-engine frame >= 99.99% allclose (rtol 2e-4, atol 2e-5) to
+   the fresh build's; (b) on frame 7's
+   tables, a primary and a bounce-like set of 131,072 rays: B1 and B3 vs
+   their plain version, B3 vs B1, B2 vs its plain version (phases 2-3's
+   comparators); (c) every vertex of the flattened bench scene moved by a
+   smooth seeded field of amplitude REFIT_AMP: ``refit_dense``'s
+   ``leaf_rec`` and ``groups_bf2`` equal the tables ``__post_init__``
+   builds from its groups (and differ from the unrefit ones), B1 and B2 =
+   their plain versions on the refit table (primary and bounce sets), B1 =
+   brute force over the deformed triangles (found, t within 1e-6
+   relative, prim outside t-ties) on the primary set; ``refit_bvh`` of the
+   classic tree: the fused level = ``plain_run_level`` on every level of
+   one bounce call per mode, the wave engine vs B1 on the refit tables
+   within phase 10's bounds; (d) an asset tree written under ``build/``
+   (a glTF sphere, two GameObjects, lights, camera): ``EditSession`` at
+   1280x720 (``edit_object``, ``render``, ``capture``, an external JSON
+   edit folded in by ``watch_once``) gives the tables and the frame (bit
+   for bit) of a fresh ``load_reference_scene`` of the edited tree; the
+   command line's ``--session`` (commands on stdin), ``--debug-pixel 640
+   360`` and ``--draw-bvh 3`` (on ``--demo cornell``), run side by side,
+   exit 0; ``trace_pixel``'s final radiance on frame 7's tables =
+   ``render_sample``'s for that pixel (no AA, the frame's brightest) bit
+   for bit, and not black. Prints the median refresh, full-build and
+   frame ms with the card's name and power limit, each kernel's launches
+   over the phase (B1, B2, B3 and the fused level must launch), and the
+   phase's seconds;
+13. prints the kernels' JSON line (each kernel's launches over phase 12
+   under ``dynamic_path_launches``), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -240,6 +283,21 @@ WAVE_SAME_PRIM = 0.9995
 # differ is expected)
 SKY_FIXTURE = os.path.join("tests", "golden", "sky_32x16.hdr")
 SHADE_TILE_CLOSE = 0.9999
+# the dynamic-scene path (phase 12): frames; the frames whose image is also
+# held to the fresh build's and whose previous scene is rendered again (the
+# tables are held to the fresh build's on every frame); the radius of the
+# nine spheres' orbit about the origin (2.3 apart on the circle: unit spheres
+# do not overlap); the seeded deformation's amplitude (1% of a sphere's
+# radius); rays per chunk of the brute-force check; the BLAS-side tensors a
+# refresh keeps
+DYN_FRAMES = 8
+DYN_IMAGE_FRAMES = (1, DYN_FRAMES - 1)
+DYN_ORBIT = 3.3
+REFIT_AMP = 0.01
+BRUTE_RAYS = 1024
+MODULE_OF = {"f32": "trace", "bf16": "trace_bf16", "rows": "trace_rows"}
+SHARED_TABLES = ("groups", "groups_bf", "glo", "pids_c", "prim_base", "leaf_rec",
+                 "groups_bf2")
 
 
 def _smi() -> str:
@@ -886,11 +944,13 @@ def _wave_sync_free(bvh, sets):
 
 def _wave_vs_b1(scene_w, dbvh, sets, card):
     """The whole wave engine (through its sorted wrappers) vs B1 on the same
-    rays; prints the rates, levels, fused launches and waves of each call."""
+    rays; prints the rates, levels, fused launches and waves of each call.
+    Returns the fused launches per mode (each call resets the counts)."""
     import torch
     from physically_based_ray_tracer_tpu_torch.ops import trace, wave_level, wave_scan
     from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
     bvh = scene_w.bvh
+    total = {"closest": 0, "any": 0}
     for sname, (o, d, tm) in sets.items():
         calls = {}
         for mode in ("closest", "any"):
@@ -919,6 +979,9 @@ def _wave_vs_b1(scene_w, dbvh, sets, card):
         _check(r["same_prim"] >= WAVE_SAME_PRIM, f"{sname}: wave vs B1 prim agreement")
         _check(r["occ_mismatch"] <= WAVE_VS_B1, f"{sname}: wave vs B1 occlusion mismatch")
         _check(wave_scan.truncated_pushes(o.device) == 0, "wave engine stack overflow")
+        for mode, call in calls.items():
+            total[mode] += call[4]
+    return total
 
 
 def _chunk_gpu_vs_cpu(renderer, cfg, n, frac, what):
@@ -1086,6 +1149,406 @@ def _cli_path(scene2, cam, cfg, dev, card, first32, ms32, engines):
           f"{res.stderr.strip()}\n{res.stdout.strip()} [{card}]", flush=True)
     _check(res.returncode == 0, "the command line failed")
     _check(os.path.exists(out) and os.path.getsize(out) > 0, "the command line wrote no file")
+    return report
+
+
+def _differ(a, b):
+    """The fields of two scenes whose tables are not the same bytes: every
+    tensor of the dense table (its derived tables too) and its stack need,
+    the shading arrays and the lights."""
+    import torch
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.contiguous().view(-1).view(torch.uint8), y.contiguous().view(-1).view(torch.uint8)))
+    out = [f"dense.{k}" for k, v in vars(a.dense).items()
+           if isinstance(v, torch.Tensor) and not same(v, getattr(b.dense, k))]
+    if a.dense.stack_need != b.dense.stack_need:
+        out.append("dense.stack_need")
+    out += [k for k, v in vars(a).items()
+            if isinstance(v, torch.Tensor) and not same(v, getattr(b, k))]
+    return out + [f"lights.{k}" for k, v in vars(a.lights).items()
+                  if not same(v, getattr(b.lights, k))]
+
+
+def _brute_closest(o, d, tri):
+    """Closest hit of every ray over a triangle list (prim order), by the
+    plain version's Möller-Trumbore (``trace._mt``, the kernel's operations)
+    on the card: (t, prim, t-tie mask)."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import trace
+    tri = torch.from_numpy(np.ascontiguousarray(tri, np.float32)).to(o.device)
+    v0 = tri[:, 0]
+    edges = (v0, tri[:, 1] - v0, tri[:, 2] - v0)
+    ts, prims, ties = [], [], []
+    for r0 in range(0, o.shape[0], BRUTE_RAYS):
+        oc, dc = o[r0:r0 + BRUTE_RAYS], d[r0:r0 + BRUTE_RAYS]
+        tt, _, _, ok = trace._mt(tuple(oc[:, k, None] for k in range(3)),
+                                 tuple(dc[:, k, None] for k in range(3)), edges)
+        tt = torch.where(ok, tt, torch.full_like(tt, 1e30))
+        t1, j1 = tt.min(dim=1)
+        tt.scatter_(1, j1[:, None], 1e30)
+        t2 = tt.min(dim=1).values
+        ts.append(t1)
+        prims.append(torch.where(t1 < 1e30, j1.to(torch.int32), -1))
+        ties.append((t1 < 1e30) & (t2 <= t1 * (1 + T_RTOL)))
+    return torch.cat(ts), torch.cat(prims), torch.cat(ties)
+
+
+def _write_assets(root):
+    """A small reference-format asset tree: a UV sphere as a glTF at the
+    default model path, two GameObjects of it (rotation 0, so the JSON round
+    trip is exact), point, directional and spot lights, and the camera."""
+    import base64
+    from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
+    from physically_based_ray_tracer_tpu_torch.scene.procedural import make_sphere
+    from physically_based_ray_tracer_tpu_torch.scene.scene import Instance
+    from physically_based_ray_tracer_tpu_torch.scene.serialization import (
+        save_camera_json, save_gameobject_json, save_light_json)
+    corners, normals, uvs, _ = make_sphere(radius=0.8, lat=32, lon=64)
+    blobs = [np.ascontiguousarray(x, np.float32).tobytes() for x in (corners, normals, uvs)]
+    offs = np.cumsum([0] + [len(b) for b in blobs])
+    data = b"".join(blobs)
+    n = corners.shape[0]
+    doc = {"asset": {"version": "2.0"},
+           "buffers": [{"uri": "data:application/octet-stream;base64,"
+                               + base64.b64encode(data).decode(), "byteLength": len(data)}],
+           "bufferViews": [{"buffer": 0, "byteOffset": int(offs[i]),
+                            "byteLength": len(blobs[i])} for i in range(3)],
+           "accessors": [{"bufferView": i, "componentType": 5126, "count": n, "type": t}
+                         for i, t in enumerate(("VEC3", "VEC3", "VEC2"))],
+           "materials": [{"pbrMetallicRoughness": {"baseColorFactor": [0.7, 0.5, 0.3, 1],
+                                                   "metallicFactor": 0.3,
+                                                   "roughnessFactor": 0.6}}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1,
+                                                      "TEXCOORD_0": 2}, "material": 0}]}]}
+    model = os.path.join(root, "prefabs", "models", "SciFiHelmet", "SciFiHelmet.gltf")
+    os.makedirs(os.path.dirname(model), exist_ok=True)
+    with open(model, "w") as f:
+        json.dump(doc, f)
+    scene = os.path.join(root, "scene1")
+    for sub in ("pointlights", "directionallights", "spotlights"):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+    save_gameobject_json(os.path.join(scene, "BallA.json"), Instance(0, position=(-0.9, 0, 0)))
+    save_gameobject_json(os.path.join(scene, "BallB.json"), Instance(0, position=(0.9, 0.2, -0.5)))
+    save_light_json(os.path.join(scene, "pointlights", "p0.json"), (2, 3, 2), (20, 20, 20))
+    save_light_json(os.path.join(scene, "directionallights", "d0.json"), (5, 8, 3),
+                    (1.5, 1.4, 1.2))
+    save_light_json(os.path.join(scene, "spotlights", "s0.json"), (0, 4, 0), (8, 8, 8),
+                    (0, -1, 0))
+    save_camera_json(os.path.join(root, "prefabs", "camera.json"),
+                     Camera.make((0.0, 1.0, 4.0), (0.0, 0.0, 0.0), device="cpu"))
+
+
+def _dynamic_path(dev, card, cfg, engines, scene1, scene_w, sets):
+    """Phase 12: the dynamic-scene path on the bench frame. Returns the
+    phase's report (times, and each module's launches over the phase)."""
+    import types
+    import torch
+    from physically_based_ray_tracer_tpu_torch.animate import orbit
+    from physically_based_ray_tracer_tpu_torch.bvh.dense import _band_pairs, _leaf_records
+    from physically_based_ray_tracer_tpu_torch.bvh.refit import refit_bvh, refit_dense
+    from physically_based_ray_tracer_tpu_torch.ops import trace, trace_rows, wave_level
+    from physically_based_ray_tracer_tpu_torch.render.debugger import format_trace, trace_pixel
+    from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.loader import load_reference_scene
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+    from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance,
+                                                                   build_scene_instanced,
+                                                                   rebuild_scene, world_tris)
+    from physically_based_ray_tracer_tpu_torch.scene.serialization import save_gameobject_json
+    from physically_based_ray_tracer_tpu_torch.session import EditSession
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build")
+    os.makedirs(out_dir, exist_ok=True)
+    report = {}
+    for c in engines:
+        c.reset_counts()
+    phase_counts = {}
+
+    def add_counts():
+        for c in engines:
+            key = c.__name__.rsplit(".", 1)[1]
+            acc = phase_counts.setdefault(key, {})
+            for k, v in c.LAUNCHES.items():
+                acc[k] = acc.get(k, 0) + v
+            c.reset_counts()
+
+    # (a) eight frames of the nine spheres on an orbit, the floor still:
+    # rebuild_scene vs a from-scratch build of the same instances
+    scene, cam, _, handle = build_bench_scene(flatten=False, return_handle=True, device=dev)
+    _check(scene.dense.two_level and handle.tlas_meta is not None,
+           "the dynamic path's bench scene is not two-level")
+    models, lights = handle.models, scene.lights
+    shared = {k: getattr(scene.dense, k) for k in SHARED_TABLES}
+    r = Renderer(scene, cam, cfg, device=dev)
+    refresh_ms, full_ms, frame_ms = [], [], []
+    prev = prev_img = None
+    for c in engines:
+        c.reset_counts()
+    for f in range(DYN_FRAMES):
+        insts = orbit(2 * np.pi * f / DYN_FRAMES, n=9, radius=DYN_ORBIT) + [Instance(1)]
+        t0 = time.perf_counter()
+        new = rebuild_scene(r.scene, handle, insts, device=dev)
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        fresh, _, _ = build_scene_instanced(models, insts, lights, legacy_bvh=False,
+                                            flatten=False, device=dev)
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+        differ = _differ(new, fresh)
+        kept = [k for k, v in shared.items() if getattr(new.dense, k) is not v]
+        r.scene = new
+        r.reset_accumulation()
+        t0 = time.perf_counter()
+        img = r.tick(0)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        n_fresh = n_prev = moved = None
+        if f in DYN_IMAGE_FRAMES:
+            img_fresh = Renderer(fresh, cam, cfg, device=dev).tick(0)
+            n_fresh = int((img != img_fresh).any(axis=-1).sum())
+            n_prev = int((Renderer(prev, cam, cfg, device=dev).tick(0) != prev_img)
+                         .any(axis=-1).sum())
+        if prev is not None:
+            moved = int((img != prev_img).any(axis=-1).sum())
+        print(f"  frame {f}: rebuild_scene {refresh_ms[-1]:.2f} ms, build_scene_instanced "
+              f"{full_ms[-1]:.2f} ms, tick {frame_ms[-1]:.2f} ms; stack need "
+              f"{new.dense.stack_need}; tables differing from the fresh build {differ}; "
+              f"BLAS-side tensors not shared {kept}; pixels differing from the fresh "
+              f"build's frame {n_fresh}, the previous scene's frame rendered again vs its "
+              f"own {n_prev}; pixels changed since the last frame {moved} [{card}]",
+              flush=True)
+        _check(not differ, f"frame {f}: refreshed tables differ from a fresh build: {differ}")
+        _check(not kept, f"frame {f}: the refresh did not keep the BLAS-side tensors {kept}")
+        _check(n_fresh in (None, 0),
+               f"frame {f}: {n_fresh} pixels differ from the fresh build's frame")
+        _check(n_prev in (None, 0), f"frame {f}: the previous scene renders differently now")
+        _check(moved is None or moved > 0, f"frame {f}: nothing moved")
+        _check(img.shape == (720, 1280, 3) and bool(np.isfinite(img).all()),
+               f"frame {f}: image not finite or of the wrong shape")
+        prev, prev_img = new, img
+    counts = {c.__name__.rsplit(".", 1)[1]: (dict(c.LAUNCHES), dict(c.PLAIN_CALLS))
+              for c in engines}
+    plain = sum(sum(v[1].values()) for v in counts.values())
+    print(f"animate ({DYN_FRAMES} frames, one tick each, two more on frames "
+          f"{DYN_IMAGE_FRAMES}): launches "
+          f"{json.dumps({k: v[0] for k, v in counts.items()})}, plain-version calls {plain}",
+          flush=True)
+    _check(counts["trace_bf16"][0]["closest"] > 0 and counts["trace_bf16"][0]["any"] > 0,
+           "the animate frames did not launch both B2 modes")
+    _check(plain == 0, "the animate frames called a plain version")
+    add_counts()
+    # the same motion with the classic BVH (legacy_bvh=True): rebuild_scene
+    # rebuilds the wave engine's tree on the host every frame; a wave-engine
+    # frame on it equals the fresh build's
+    scene_l, _, _, handle_l = build_bench_scene(flatten=False, legacy_bvh=True,
+                                                return_handle=True, device=dev)
+    cfg_w = cfg.replace(traversal="wave")
+    r_w = Renderer(scene_l, cam, cfg_w, device=dev)
+    legacy_ms = []
+    for f in range(2):
+        insts = orbit(2 * np.pi * f / DYN_FRAMES, n=9, radius=DYN_ORBIT) + [Instance(1)]
+        t0 = time.perf_counter()
+        r_w.scene = rebuild_scene(r_w.scene, handle_l, insts, device=dev)
+        torch.cuda.synchronize()
+        legacy_ms.append((time.perf_counter() - t0) * 1e3)
+        fresh_l, _, _ = build_scene_instanced(models, insts, lights, legacy_bvh=True,
+                                              flatten=False, device=dev)
+        differ = _differ(r_w.scene, fresh_l)
+        _check(not differ, f"legacy_bvh frame {f}: tables differ from a fresh build: {differ}")
+        # the classic tree is rebuilt from v0 + e1, v0 + e2 summed in f32 (as
+        # the JAX package rebuilds it), not from the model's corners, so its
+        # boxes may differ from a fresh build's by an ulp: printed
+        a, b = r_w.scene.bvh, fresh_l.bvh
+        same_shape = a.nodes_box.shape == b.nodes_box.shape
+        print(f"  legacy_bvh frame {f}: classic tree {a.n_nodes} nodes (fresh build "
+              f"{b.n_nodes}); topology equal "
+              f"{same_shape and torch.equal(a.nodes_child, b.nodes_child)}, max box "
+              f"difference {float((a.nodes_box - b.nodes_box).abs().max()) if same_shape else None}",
+              flush=True)
+    r_w.reset_accumulation()
+    img_w = r_w.tick(0)
+    img_wf = Renderer(fresh_l, cam, cfg_w, device=dev).tick(0)
+    n_w = int((img_w != img_wf).any(axis=-1).sum())
+    close = np.isclose(img_w, img_wf, rtol=2e-4, atol=2e-5).all(axis=-1)
+    print(f"legacy_bvh=True: rebuild_scene (classic tree rebuilt on the host) {legacy_ms} ms; "
+          f"wave frame {r_w.stats.frame_ms:.2f} ms, {n_w} pixels not bit-equal to the fresh "
+          f"build's wave frame, {close.mean() * 100:.4f}% allclose [{card}]", flush=True)
+    _check(close.mean() >= WAVE_FRAME_CLOSE,
+           "legacy_bvh: the wave frame differs from the fresh build's")
+    report["legacy_rebuild_ms"] = legacy_ms
+    med = {k: statistics.median(v) for k, v in
+           (("rebuild_scene_ms", refresh_ms), ("build_scene_instanced_ms", full_ms),
+            ("frame_ms", frame_ms))}
+    report.update(med, refresh_ms=refresh_ms, full_ms=full_ms, frame_ms_list=frame_ms)
+    print(f"dynamic-scene path, bench frame 1280x720 4 bounces AA bf16, two-level, "
+          f"{DYN_FRAMES} frames: rebuild_scene median {med['rebuild_scene_ms']:.3f} ms "
+          f"{refresh_ms}; from-scratch build_scene_instanced median "
+          f"{med['build_scene_instanced_ms']:.3f} ms {full_ms}; frame (tick) median "
+          f"{med['frame_ms']:.3f} ms {frame_ms} [{card}]", flush=True)
+
+    # (b) B1, B2, B3 vs their plain versions on frame 7's refreshed tables
+    dbvh = r.scene.dense
+    rsets = _ray_sets(r.scene, cam, cfg, dev, seed=7)
+    rep = []
+    for sname in ("primary", "bounce"):
+        o, d, tm = rsets[sname]
+        ref = _plain_ref(dbvh, o, d, tm)
+        h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+        occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
+        _compare_exact("B1", f"refreshed/{sname}", h1, occ1, ref, rep)
+        h3 = trace_rows.sorted_rows_closest(dbvh, o, d, tm)
+        occ3 = trace_rows.sorted_rows_any(dbvh, o, d, tm)
+        _compare_exact("B3", f"refreshed/{sname}", h3, occ3, ref, rep)
+        _rows_vs_f32(f"refreshed/{sname}", h3, occ3, h1, occ1)
+        _compare_bf16(f"refreshed/{sname}", dbvh, o, d, tm, rep)
+    add_counts()
+
+    # (c) refit: the flattened bench table and the classic tree, every
+    # vertex moved by a smooth seeded field (shared corners move together)
+    tri = world_tris(scene1.tri_v0, scene1.tri_e1, scene1.tri_e2)
+    _check(np.array_equal(tri, world_tris(scene_w.tri_v0, scene_w.tri_e1, scene_w.tri_e2)),
+           "flattened and classic scenes differ")
+    gen = np.random.default_rng(12)
+    w, ph = gen.normal(size=(3, 3)) * 2.0, gen.uniform(0, 2 * np.pi, 3)
+    pts = tri.reshape(-1, 3).astype(np.float64)
+    tri2 = (pts + REFIT_AMP * np.sin(pts @ w + ph)).astype(np.float32).reshape(tri.shape)
+    t0 = time.perf_counter()
+    re = refit_dense(scene1.dense, tri2)
+    torch.cuda.synchronize()
+    refit_ms = (time.perf_counter() - t0) * 1e3
+    bits = lambda x: x.view(torch.int16)
+    derived = dict(
+        leaf_rec_rebuilt=bool(torch.equal(re.leaf_rec, _leaf_records(re.groups))),
+        groups_bf2_rebuilt=bool(torch.equal(bits(re.groups_bf2),
+                                            bits(_band_pairs(re.groups_bf)))),
+        leaf_rec_changed=not torch.equal(re.leaf_rec, scene1.dense.leaf_rec),
+        groups_bf2_changed=not torch.equal(bits(re.groups_bf2), bits(scene1.dense.groups_bf2)))
+    print(f"refit_dense ({scene1.n_prims} triangles moved by up to {REFIT_AMP}): "
+          f"{refit_ms:.2f} ms, stack need {re.stack_need}; derived tables {derived} [{card}]",
+          flush=True)
+    _check(all(derived.values()), f"the refit's derived tables are stale: {derived}")
+    for sname in ("primary", "bounce"):
+        o, d, tm = sets[sname]
+        ref = _plain_ref(re, o, d, tm)
+        h1 = trace.sorted_closest_dense(re, o, d, tm)
+        occ1 = trace.sorted_any_dense(re, o, d, tm)
+        _compare_exact("B1", f"refit/{sname}", h1, occ1, ref, rep)
+        _compare_bf16(f"refit/{sname}", re, o, d, tm, rep)
+        if sname == "primary":
+            t_b, p_b, tie = _brute_closest(o, d, tri2)
+            f1, fb = h1.prim >= 0, p_b >= 0
+            both = f1 & fb
+            r_b = dict(found=int(fb.sum()), found_mismatch=int((f1 != fb).sum()),
+                       t_max_rel=float(((h1.t - t_b).abs() / t_b.abs())[both].max()),
+                       prim_mismatch=int(((h1.prim != p_b) & both & ~tie).sum()),
+                       ties=int(tie.sum()))
+            print(f"  B1 vs brute force over the deformed triangles, primary: "
+                  f"{json.dumps(r_b)}", flush=True)
+            _check(r_b["found"] > N_RAYS // 4 and r_b["found_mismatch"] == 0
+                   and r_b["t_max_rel"] <= T_RTOL and r_b["prim_mismatch"] == 0,
+                   "B1 on the refit table differs from brute force")
+    t0 = time.perf_counter()
+    bvh2 = refit_bvh(scene_w.bvh, tri2)
+    torch.cuda.synchronize()
+    refit_bvh_ms = (time.perf_counter() - t0) * 1e3
+    o, d, tm = (x[:WAVE_RAYS] for x in sets["bounce"])
+    for mode in ("closest", "any"):
+        with _LevelCheck(mode, per_wave=False) as lv:
+            _wave_calls(bvh2, o, d, tm, mode)
+        torch.cuda.synchronize()
+        print(f"  fused level vs plain_run_level on the refit classic BVH, bounce {mode}, "
+              f"every level: {json.dumps(lv.r)}", flush=True)
+        _check(lv.r["levels"] > 0 and lv.r["level_mismatch"] == 0
+               and lv.r["level_wave_mismatch"] == 0,
+               f"refit classic BVH, {mode}: the fused level differs from plain_run_level")
+    add_counts()      # _wave_vs_b1 resets the wave engine's counts per call
+    fused = _wave_vs_b1(types.SimpleNamespace(bvh=bvh2), re,
+                        {k: sets[k] for k in ("primary", "bounce")}, card)
+    for mode, n in fused.items():
+        phase_counts["wave_level"][mode] += n
+    wave_level.reset_counts()     # the last call's launches are in ``fused``
+    print(f"refit_bvh ({scene_w.bvh.n_nodes} nodes): {refit_bvh_ms:.2f} ms [{card}]",
+          flush=True)
+    report.update(refit_dense_ms=refit_ms, refit_bvh_ms=refit_bvh_ms)
+    add_counts()
+
+    # (d) the edit session, the command line's last three flags, the debugger
+    assets = os.path.join(out_dir, "smoke_assets")
+    shutil.rmtree(assets, ignore_errors=True)
+    _write_assets(assets)
+    t0 = time.perf_counter()
+    sess = EditSession(assets, cfg=cfg, device=dev)
+    sess.edit_object("BallA", position=(0.6, 0.1, -0.2))
+    sess.render()
+    cap = sess.capture(os.path.join(out_dir, "smoke_session.png"))
+    ball_b = os.path.join(assets, "scene1", "BallB.json")
+    save_gameobject_json(ball_b, Instance(0, position=(-0.3, 0.4, 0.6)))
+    t_m = os.path.getmtime(ball_b) + 2
+    os.utime(ball_b, (t_m, t_m))
+    changed = sess.watch_once()
+    img_s = sess.render()
+    scene_f, cam_f, _ = load_reference_scene(assets, device=dev)
+    img_f = Renderer(scene_f, cam_f, cfg, device=dev).tick(0)
+    differ = _differ(sess.renderer.scene, scene_f)
+    n_px = int((img_s != img_f).any(axis=-1).sum())
+    print(f"EditSession 1280x720: edit_object, render, capture ({os.path.getsize(cap)} bytes), "
+          f"watch_once changed {[os.path.relpath(p, assets) for p in changed]}; tables "
+          f"differing from a fresh load_reference_scene {differ}, pixels differing from its "
+          f"frame {n_px} ({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    _check(ball_b in changed and not differ and n_px == 0,
+           "the session's scene or frame differs from a fresh load of the edited tree")
+    add_counts()
+
+    procs = {}
+    tools = {
+        "session": (["--session", "--assets", assets, "--width", "1280", "--height", "720"],
+                    f"move BallA 0.2 0.0 0.1\nrender\ncapture "
+                    f"{os.path.join(out_dir, 'smoke_cli_session.png')}\nquit\n"),
+        "debug-pixel": (["--demo", "cornell", "--debug-pixel", "640", "360"], None),
+        "draw-bvh": (["--demo", "cornell", "--draw-bvh", "3", "--spp", "1", "--out",
+                      os.path.join(out_dir, "smoke_cli_bvh.png")], None)}
+    t0 = time.perf_counter()
+    for name, (args, _) in tools.items():
+        procs[name] = subprocess.Popen([sys.executable, "-m", f"{PKG}.cli", *args], cwd=root,
+                                       stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    for name, (args, stdin) in tools.items():
+        out, err = procs[name].communicate(stdin, timeout=600)
+        rc = procs[name].returncode
+        tail = "\n".join(out.strip().splitlines()[:24])
+        print(f"cli {name} (exit {rc}, {time.perf_counter() - t0:.1f} s since the start):\n"
+              f"{err.strip()}\n{tail} [{card}]", flush=True)
+        _check(rc == 0, f"the command line's {name} failed")
+        want = {"session": "wrote", "debug-pixel": "final radiance",
+                "draw-bvh": "overlay"}[name]
+        _check(want in out and "error:" not in err, f"the command line's {name}: no result")
+
+    # the brightest pixel of frame 7 (a lit sphere), traced without AA
+    cfg_np = cfg.replace(antialias=False)
+    y, x = np.unravel_index(int(np.argmax(prev_img.sum(axis=-1))), prev_img.shape[:2])
+    recs = trace_pixel(r.scene, cam, cfg_np, int(x), int(y), device=dev)
+    ids = torch.tensor([y * cfg.width + x], dtype=torch.int32, device=dev)
+    col, _ = render_sample(r.scene, cam, cfg_np, 0, 0, ids)
+    want = col.cpu().numpy()[0]
+    print(f"trace_pixel ({x}, {y}) on frame 7's tables:\n{format_trace(recs)}\n"
+          f"render_sample of pixel {int(ids[0])}: {want.tolist()}", flush=True)
+    _check(np.array_equal(recs[-1]["radiance"], want) and want.sum() > 0,
+           "trace_pixel's radiance differs from render_sample's (or is black)")
+    add_counts()
+    report["launches"] = phase_counts
+    print(f"dynamic-scene path launches (phase total): {json.dumps(phase_counts)}", flush=True)
+    _check(phase_counts["trace"]["closest"] > 0 and phase_counts["trace"]["any"] > 0
+           and phase_counts["trace_rows"]["closest"] > 0
+           and phase_counts["wave_level"]["closest"] > 0
+           and phase_counts["wave_level"]["any"] > 0,
+           "the dynamic path did not launch B1, B3 and the fused level")
     return report
 
 
@@ -1434,12 +1897,18 @@ def main() -> int:
     with _Phase("command-line render path"):
         _cli_path(scene2, cam, cfg, dev, card, first32, ms32, engines)
 
+    # 12. the dynamic-scene path: animate, kernels on refreshed tables,
+    # refit, the edit session and the command line's last three flags
+    with _Phase("dynamic-scene path") as ph:
+        dyn = _dynamic_path(dev, card, cfg, engines, scene1, scene_w, sets)
+    print(f"dynamic-scene path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
+
     # 9. GPU vs CPU chunks
     with _Phase("GPU vs CPU chunks"):
         _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
         _chunk_gpu_vs_cpu(r16, cfg, BF16_CHUNK, 0.98, "bf16 engine")
 
-    # 12. result lines
+    # 13. result lines
     def err(eng, mode):
         if eng == "bf16":
             rep = rep_bf16
@@ -1448,6 +1917,10 @@ def main() -> int:
         if mode == "closest":
             return max(r["t_max_abs"] for r in rep)
         return float(any(r["occ_mismatch"] for r in rep))
+
+    def dyn_launches(module, mode):
+        """The kernel's launches over phase 12 (the dynamic-scene path)."""
+        return dyn["launches"].get(module, {}).get(mode, 0)
 
     kernels = []
     for eng, launches in (("f32", launches32), ("bf16", launches16),
@@ -1461,7 +1934,8 @@ def main() -> int:
                             "source": src, "replaces": replaces,
                             "launches": launches[mode], "max_abs_err": err(eng, mode),
                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": None})
+                            "bound_by": b_by, "library_ms": None,
+                            "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode)})
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does, and
                 # the warps that left the shared walk
@@ -1478,7 +1952,9 @@ def main() -> int:
         w = wave_k[(name, report_sets[mode], mode)]
         entry = {"name": f"{name}_{mode}" if name == "leaf_mt" else name, "route": "cuda",
                  "source": src, "replaces": replaces, "launches": launches, **w,
-                 "library_ms": None, "main_path": "inside wave_level"}
+                 "library_ms": None, "main_path": "inside wave_level",
+                 "dynamic_path_launches": dyn_launches(name, "scan" if name == "wave_scan"
+                                                       else mode)}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
@@ -1491,6 +1967,7 @@ def main() -> int:
                         "replaces": replaces, "launches": launches_level[mode],
                         **{k: v for k, v in w.items() if k != "heaviest"}, "set": sname,
                         "library_ms": None, "port_only": True,
+                        "dynamic_path_launches": dyn_launches("wave_level", mode),
                         "registers": max((u["registers"] for u in level_use.values()),
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())

@@ -48,8 +48,10 @@ Two derived tables, the port's own, are built from those once per
     that rows 2i and 2i+1 (the two bands of component i) form one 32-bit
     bf16x2 word of the column's 64-byte record.
 
-``refresh_tlas`` and the native SBVH core are not ported: neither is on the
-main path.
+``refresh_tlas`` rewrites the TLAS head of a two-level table after instance
+motion and returns a new ``DenseBVH`` that shares every BLAS-side tensor
+(``groups``, the bf16 tables and both derived tables) with the old one; the
+old table's tensors are never written. The native SBVH core is not ported.
 """
 
 from __future__ import annotations
@@ -86,12 +88,22 @@ def stack_need(nodes16: np.ndarray, inst16: np.ndarray) -> int:
     A ray pushes at most one entry (the far child) per internal node on its
     current root-to-node path, plus one restore sentinel per instance entry,
     so the bound is the deepest such path (counted exactly by walking the
-    tree, following instance leaves into their BLAS roots)."""
+    tree; an instance leaf goes on with its BLAS's own need)."""
     nodes = np.asarray(nodes16, np.float32).reshape(-1, NODE_F)
     inst = np.asarray(inst16, np.float32)
-    two_level = inst.shape[0] >= INST_F
+    if inst.shape[0] < INST_F:
+        return _walk_need(nodes, 0)
+    roots = np.rint(inst.reshape(-1, INST_F)[:, 12]).astype(np.int64)
+    need_of = {r: _walk_need(nodes, int(r)) for r in np.unique(roots)}
+    return _walk_need(nodes, 0, np.array([need_of[r] for r in roots], np.int64))
+
+
+def _walk_need(nodes: np.ndarray, start: int, inst_need=None) -> int:
+    """Deepest path from node ``start`` (counted as 1). Where ``inst_need``
+    gives each instance's BLAS need, an instance leaf adds its restore
+    sentinel and that need to the path."""
     need = 0
-    stack = [(0, 1)]          # (node, entries pushed on the path incl. node)
+    stack = [(start, 1)]      # (node, entries pushed on the path incl. node)
     while stack:
         n, d = stack.pop()
         need = max(need, d)
@@ -101,10 +113,8 @@ def stack_need(nodes16: np.ndarray, inst16: np.ndarray) -> int:
                 continue
             if code >= 0:
                 stack.append((code, d + 1))
-            elif two_level and (-(code + 1)) % 2 == 1:
-                iid = (-(code + 1)) // 2
-                root = int(np.rint(inst[iid * INST_F + 12]))
-                stack.append((root, d + 2))   # sentinel + BLAS root
+            elif inst_need is not None and (-(code + 1)) % 2 == 1:
+                need = max(need, d + 1 + int(inst_need[(-(code + 1)) // 2]))
     return need
 
 
@@ -213,13 +223,18 @@ def _band_pairs(groups_bf: torch.Tensor) -> torch.Tensor:
 
 
 class TLASMeta(NamedTuple):
-    """Host-side constants of a two-level build."""
+    """Host-side constants of a two-level build: what ``refresh_tlas``
+    needs to rewrite the TLAS without touching BLAS or group data.
+    ``blas_need`` (port-only) is each mesh's BLAS stack need (the deepest
+    path from its root, the root counted as 1), so that a refresh counts
+    ``stack_need`` from the new TLAS head alone."""
 
     tlas_cap: int
-    inst_mesh: np.ndarray
-    blas_root: np.ndarray
-    blas_lo: np.ndarray
-    blas_hi: np.ndarray
+    inst_mesh: np.ndarray   # (I,) mesh index per instance
+    blas_root: np.ndarray   # (B,) merged-table root node per mesh
+    blas_lo: np.ndarray     # (B, 3) object-space root bounds per mesh
+    blas_hi: np.ndarray     # (B, 3)
+    blas_need: np.ndarray   # (B,) i64
 
 
 def _surface_area(bmin, bmax):
@@ -841,7 +856,9 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
 
     meta = TLASMeta(tlas_cap=tlas_cap, inst_mesh=inst_mesh,
                     blas_root=node_off.copy(), blas_lo=blas_lo,
-                    blas_hi=blas_hi)
+                    blas_hi=blas_hi,
+                    blas_need=np.array([_walk_need(all_nodes, int(r)) for r in node_off],
+                                       np.int64))
     gbf, glo, pids_c = _pack_groups_bf(all_groups)
     dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups,
                                inst16.reshape(-1), prim_base,
@@ -850,3 +867,28 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
                                device="cpu")   # host tables; the scene moves them
     depth = tlas_cap.bit_length() + depth_blas + 2
     return dbvh, meta, depth
+
+
+def refresh_tlas(dbvh: DenseBVH, meta: TLASMeta, transforms) -> DenseBVH:
+    """The two-level table after instance transform changes: a new
+    ``DenseBVH`` whose ``nodes16`` has only its TLAS head (``tlas_cap``
+    nodes) rebuilt, with new ``inst16``, ``world_lo``, ``world_hi`` and
+    ``stack_need``; every BLAS-side tensor (``groups``, ``groups_bf``,
+    ``glo``, ``pids_c``, ``prim_base``, ``leaf_rec``, ``groups_bf2``) is
+    the same object as ``dbvh``'s. New tensors are written, never the old
+    ones, so ``dbvh`` stays valid (a frame still queued on it, or a scene
+    rendered again). ``stack_need`` comes from the new head and
+    ``meta.blas_need``, as ``stack_need()`` counts it on the whole table."""
+    transforms = np.asarray(transforms, np.float32)
+    lo, hi = _instance_aabbs(meta.blas_lo, meta.blas_hi, meta.inst_mesh,
+                             transforms)
+    tlas = _build_tlas_nodes(lo, hi, meta.tlas_cap)
+    inst16 = _inst_rows(meta.inst_mesh, transforms, meta.blas_root).reshape(-1)
+    dev = dbvh.nodes16.device
+    nodes16 = torch.cat([torch.from_numpy(tlas.reshape(-1)).to(dev),
+                         dbvh.nodes16[meta.tlas_cap * NODE_F:]])
+    need = _walk_need(tlas, 0, meta.blas_need[meta.inst_mesh])
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+    return dataclasses.replace(dbvh, nodes16=nodes16, inst16=f32(inst16),
+                               world_lo=f32(lo.min(axis=0)),
+                               world_hi=f32(hi.max(axis=0)), stack_need=need)

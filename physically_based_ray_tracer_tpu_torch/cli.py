@@ -5,13 +5,18 @@ Usage:
     python -m physically_based_ray_tracer_tpu_torch.cli --demo cornell --spp 64
     python -m physically_based_ray_tracer_tpu_torch.cli --assets /path/to/assets \
         --scene scene1 --width 1920 --height 1080
+    python -m physically_based_ray_tracer_tpu_torch.cli --demo cornell --debug-pixel 640 360
+    python -m physically_based_ray_tracer_tpu_torch.cli --demo cornell --draw-bvh 3
+    python -m physically_based_ray_tracer_tpu_torch.cli --assets ROOT --session < commands
 
 The flags and defaults are the JAX package's. It renders on the CUDA card;
 ``--cpu`` renders on the CPU instead (the kernels' plain versions). Each
-frame's time and Mrays/s go to stderr, the written path to stdout. The
-editing session (``--session``), the pixel debugger (``--debug-pixel``)
-and the BVH overlay (``--draw-bvh``) are not ported: asking for one exits
-with status 2 and a message naming it.
+frame's time and Mrays/s go to stderr, the written path to stdout.
+``--debug-pixel X Y`` prints one pixel's per-bounce trace and the colour
+grid around it instead of rendering a frame; ``--draw-bvh LEVEL`` draws the
+boxes of one level of the scene's classic BVH over the capture;
+``--session`` runs the headless edit session over ``--assets`` (stdin
+commands: move / light / cam / render / capture / watch / quit).
 """
 
 from __future__ import annotations
@@ -20,10 +25,6 @@ import argparse
 import dataclasses
 import sys
 import time
-
-NOT_PORTED = {"session": "--session (the headless edit session)",
-              "debug_pixel": "--debug-pixel (the per-pixel path debugger)",
-              "draw_bvh": "--draw-bvh (the BVH wireframe overlay)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,23 +55,60 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU instead of the CUDA card")
     p.add_argument("--debug-pixel", nargs=2, type=int, metavar=("X", "Y"),
-                   default=None, help="not ported: exits with status 2")
+                   default=None,
+                   help="print a per-bounce trace of one pixel's path plus its "
+                        "neighbourhood colour grid instead of rendering a frame")
     p.add_argument("--draw-bvh", type=int, default=None, metavar="LEVEL",
-                   help="not ported: exits with status 2")
+                   help="overlay the BVH node AABB wireframes of the given tree "
+                        "level on the capture")
     p.add_argument("--session", action="store_true",
-                   help="not ported: exits with status 2")
+                   help="headless edit session over --assets: stdin commands "
+                        "(move/light/cam/render/capture/watch/quit) change the "
+                        "live scene and write the scene JSONs back")
     return p
+
+
+def run_session(args, cfg, device) -> None:
+    """The stdin-driven edit-render loop (``session.EditSession``). A bad
+    command prints an error and the session goes on."""
+    from physically_based_ray_tracer_tpu_torch.session import EditSession
+
+    s = EditSession(args.assets, args.scene, cfg=cfg, device=device)
+    print("session ready; commands: move NAME X Y Z | light KIND IDX "
+          "pos|color X Y Z | cam PX PY PZ [TX TY TZ] | render [SPP] | "
+          "capture [PATH] | watch | quit", file=sys.stderr)
+    for line in sys.stdin:
+        try:
+            tok = line.split()
+            if not tok:
+                continue
+            if tok[0] == "quit":
+                break
+            elif tok[0] == "move":
+                s.edit_object(tok[1], position=[float(x) for x in tok[2:5]])
+            elif tok[0] == "light":
+                kw = {"pos": "position", "color": "color"}[tok[3]]
+                s.edit_light(tok[1], int(tok[2]), **{kw: [float(x) for x in tok[4:7]]})
+            elif tok[0] == "cam":
+                v = [float(x) for x in tok[1:]]
+                s.edit_camera(pos=v[:3], target=v[3:6] if len(v) >= 6 else None)
+            elif tok[0] == "render":
+                s.render(samples=int(tok[1]) if len(tok) > 1 else 1)
+                print(f"rendered: {s.renderer.stats.frame_ms:.1f} ms", file=sys.stderr)
+            elif tok[0] == "capture":
+                print("wrote", s.capture(tok[1] if len(tok) > 1 else None))
+            elif tok[0] == "watch":
+                print("changed:", s.watch_once(), file=sys.stderr)
+            else:
+                print(f"unknown command: {tok[0]}", file=sys.stderr)
+        except Exception as e:  # keep the session alive on bad input
+            print(f"error: {e}", file=sys.stderr)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    asked = [msg for key, msg in NOT_PORTED.items()
-             if getattr(args, key) not in (None, False)]
-    if asked:
-        print(f"not ported to the PyTorch package: {', '.join(asked)}; use "
-              "the JAX package's command line for it", file=sys.stderr)
-        return 2
 
+    import numpy as np
     import torch
 
     from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode
@@ -87,6 +125,13 @@ def main(argv=None) -> int:
         normal_mapped=not args.no_normal_map,
         stochastic_lights=not args.no_stochastic,
         post_processed=args.post, post_preset=args.post_preset)
+
+    if args.session:
+        if args.assets is None:
+            print("--session requires --assets", file=sys.stderr)
+            return 2
+        run_session(args, cfg, device)
+        return 0
 
     if args.demo == "cornell":
         from physically_based_ray_tracer_tpu_torch.scene.presets import cornell_box
@@ -105,12 +150,36 @@ def main(argv=None) -> int:
         cam = dataclasses.replace(cam, fov=f32(pp["fov"]),
                                   distortion=f32(pp["distortion"]))
 
+    if args.debug_pixel is not None:
+        from physically_based_ray_tracer_tpu_torch.render.debugger import (
+            format_trace, pixel_grid, trace_pixel)
+        x, y = args.debug_pixel
+        print(format_trace(trace_pixel(scene, cam, cfg, x, y, device=device)))
+        grid = pixel_grid(scene, cam, cfg, x, y, device=device)
+        with np.printoptions(precision=3, suppress=True):
+            print(f"colour grid around ({x},{y}):\n{grid}")
+        return 0
+
+    if args.draw_bvh is not None and scene.bvh is None:
+        print("--draw-bvh: the scene has no classic BVH (build it with "
+              "legacy_bvh=True)", file=sys.stderr)
+        return 2
     r = Renderer(scene, cam, cfg, device=device)
     t0 = time.time()
     for s in range(args.spp):
         r.tick(args.seed)
         print(f"frame {s + 1}/{args.spp}: {r.stats.frame_ms:.1f} ms, "
               f"{r.stats.mrays_per_s:.1f} Mrays/s", file=sys.stderr)
+    if args.draw_bvh is not None:
+        from physically_based_ray_tracer_tpu_torch.utils.debug_draw import (
+            bvh_level_boxes, draw_aabbs)
+        from physically_based_ray_tracer_tpu_torch.utils.image import write_png
+        lo, hi = bvh_level_boxes(scene.bvh.nodes_box.cpu().numpy(),
+                                 scene.bvh.nodes_child.cpu().numpy(), args.draw_bvh)
+        img = draw_aabbs(r._current_image(), cam, lo, hi)
+        out = write_png(args.out or f"capture_{int(time.time())}.png", img)
+        print(f"wrote {out} with BVH level-{args.draw_bvh} overlay ({lo.shape[0]} boxes)")
+        return 0
     out = r.capture(args.out)
     print(f"wrote {out} ({args.spp} spp, {time.time() - t0:.1f}s total)")
     return 0

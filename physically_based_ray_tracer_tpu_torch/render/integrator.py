@@ -323,9 +323,11 @@ _CARRY = ("o", "d", "radiance", "throughput", "alive", "primary_t")
 
 
 def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
-           depth: int) -> dict:
+           depth: int, debug: dict | None = None) -> dict:
     """The shading block of one vertex for a slice where some live lane hit:
-    refine, sky on the missed lanes, emission + NEE, continuation."""
+    refine, sky on the missed lanes, emission + NEE, continuation. A
+    ``debug`` dict (``trace_paths(collect_debug=True)``) receives the
+    vertex's hit, material and lighting state per lane."""
     o, d = lanes["o"], lanes["d"]
     radiance, throughput = lanes["radiance"], lanes["throughput"]
     alive, primary_t = lanes["alive"], lanes["primary_t"]
@@ -406,6 +408,15 @@ def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
     o = torch.where(diel, diel_org, point + bounce_dir * EPSILON)
     d = torch.where(diel, diel_dir, bounce_dir)
     alive = alive & (is_dielectric | valid)
+    if debug is not None:
+        debug.update(
+            hit_t=hit_t, hit_prim=torch.where(found, prim.to(torch.int32), -1),
+            hit_u=hit_u, hit_v=hit_v, point=point, geom_n=geom_n, shad_n=shad_n,
+            base_color=material.base_color, metalness=material.metalness,
+            roughness=material.roughness,
+            vertex_radiance=torch.where((lanes["alive_in"] & ~is_dielectric)[:, None],
+                                        vertex_rad, torch.zeros_like(vertex_rad)),
+            is_dielectric=is_dielectric, picked_specular=pick_spec)
     return dict(o=o, d=d, radiance=radiance, throughput=throughput, alive=alive,
                 primary_t=primary_t)
 
@@ -447,14 +458,24 @@ def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
     return _shade(scene, cfg, packs, lanes, key, sample, depth)
 
 
-def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int):
+def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
+                collect_debug: bool = False):
     """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit).
 
     The closest-hit traversal runs at full width every bounce; the shading
     block after it runs once at full width, or, with ``cfg.shade_tile > 0``,
     once per slice of ``B / _snap_subtiles(B, shade_tile)`` lanes, each
     behind its own gate (two host checks and its own sorted occlusion
-    pass), in order."""
+    pass), in order.
+
+    ``collect_debug=True`` (the per-pixel debugger's tap) also returns a
+    third output: a dict of per-bounce records stacked as (bounces, B, ...)
+    (the JAX package's keys: the vertex's hit, material and lighting state,
+    its ray, the hit instance, and the throughput, liveness and direction
+    leaving it). As in the JAX package, every bounce then runs the whole
+    shading block at full width with no gate (records exist for dead
+    lanes too); the radiance is the untapped integrator's. Without it the
+    frame runs exactly the untapped path."""
     check_supported(cfg, scene)
     B = o.shape[0]
     dev = o.device
@@ -465,9 +486,10 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
     primary_t = torch.full((B,), BVH_FAR, dtype=o.dtype, device=dev)
     S = _snap_subtiles(B, cfg.shade_tile)
     n = B // S
+    records = []
 
     for depth in range(cfg.bounces):
-        if not bool(alive.any()):
+        if not collect_debug and not bool(alive.any()):
             continue           # bounce gate: nothing alive, carry unchanged
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
@@ -476,7 +498,12 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
                      alive=alive, primary_t=primary_t, hit_t=hit.t,
                      prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
                      alive_in=alive, pixel_id=pixel_id)
-        if S == 1:
+        if collect_debug:
+            rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst)
+            out = _shade(scene, cfg, packs, lanes, key, sample, depth, debug=rec)
+            records.append(dict(rec, throughput_out=out["throughput"],
+                                alive_out=out["alive"], next_dir=out["d"]))
+        elif S == 1:
             out = _gated(scene, cfg, packs, lanes, key, sample, depth,
                          alive_known=True)
         else:
@@ -489,8 +516,11 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int)
 
     neg1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
     zero = torch.zeros((B,), dtype=o.dtype, device=dev)
-    return radiance, Hit(t=primary_t, u=zero, v=zero.clone(), prim=neg1,
-                         inst=neg1.clone())
+    primary_hit = Hit(t=primary_t, u=zero, v=zero.clone(), prim=neg1, inst=neg1.clone())
+    if collect_debug:
+        return radiance, primary_hit, {k: torch.stack([r[k] for r in records])
+                                       for k in (records[0] if records else ())}
+    return radiance, primary_hit
 
 
 def render_aov(scene, cfg: RenderConfig, o, d):

@@ -33,17 +33,13 @@ def load_reference_scene(assets_root: str, scene_name: str = "scene1",
     ``model_paths``: glTF/GLB files in modelIndex order; defaults to the
     reference scene1 model list (SciFiHelmet only). ``instanced=True``
     builds the two-level structure (a shared BLAS per model + a TLAS over
-    instances, with the classic BVH); False bakes one single-level tree.
-    ``return_handle=True`` would return the handle that moving instances
-    needs (the JAX package's ``InstancedScene``); the port does not carry
-    scene lifecycle yet and raises NotImplementedError.
+    instances, with the classic BVH), whose instances ``rebuild_scene``
+    moves; False bakes one single-level tree. ``return_handle=True`` also
+    returns the ``InstancedScene`` handle that ``rebuild_scene`` needs (None
+    with ``instanced=False``).
 
-    Returns (scene_data, camera, bvh_depth).
+    Returns (scene_data, camera, bvh_depth[, handle]).
     """
-    if return_handle:
-        raise NotImplementedError(
-            "return_handle=True: the InstancedScene handle (scene lifecycle, "
-            "rebuild_scene) is not ported")
     device = resolve(device)
     if model_paths is None:
         model_paths = [os.path.join(
@@ -61,13 +57,16 @@ def load_reference_scene(assets_root: str, scene_name: str = "scene1",
         if os.path.exists(sky_path):
             sky = read_hdr(sky_path)
 
+    handle = None
     if instanced:
-        scene, _, depth = build_scene_instanced(models, instances, lights, sky=sky,
-                                                device=device)
+        scene, handle, depth = build_scene_instanced(models, instances, lights, sky=sky,
+                                                     device=device)
     else:
         scene, depth = build_scene(models, instances, lights, sky=sky, device=device)
 
     cam_path = os.path.join(assets_root, "prefabs/camera.json")
     cam = (load_camera_json(cam_path, device=device) if os.path.exists(cam_path)
            else Camera.make((0, 0, 3), (0, 0, 0), device=device))
+    if return_handle:
+        return scene, cam, depth, handle
     return scene, cam, depth

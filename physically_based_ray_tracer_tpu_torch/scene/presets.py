@@ -26,8 +26,12 @@ from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, r
 
 
 def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
-                      legacy_bvh: bool = False, device=DEFAULT_DEVICE):
-    """Returns (scene_data, camera, depth) on ``device``."""
+                      legacy_bvh: bool = False, return_handle: bool = False,
+                      device=DEFAULT_DEVICE):
+    """Returns (scene_data, camera, depth) on ``device``; with
+    ``return_handle``, (scene_data, camera, depth, handle), the
+    ``InstancedScene`` that ``rebuild_scene`` moves the spheres with (its
+    ``models`` and ``instances`` are the scene's)."""
     device = resolve(device)
     sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=32, lon=64),
                                 base_color=(0.8, 0.3, 0.2), roughness=0.4,
@@ -44,10 +48,12 @@ def build_bench_scene(dense_leaf_target: int = 16, flatten="auto",
     instances = [Instance(0, position=(dx, 0, dz))
                  for dx in (-2.2, 0.0, 2.2) for dz in (-2.2, 0.0, 2.2)]
     instances.append(Instance(1))
-    scene, _meta, depth = build_scene_instanced(
+    scene, handle, depth = build_scene_instanced(
         [sphere, floor], instances, lights, legacy_bvh=legacy_bvh,
         dense_leaf_target=dense_leaf_target, flatten=flatten, device=device)
     cam = Camera.make(pos=(0, 2.5, 7), target=(0, 0, 0), device=device)
+    if return_handle:
+        return scene, cam, depth, handle
     return scene, cam, depth
 
 

@@ -10,13 +10,19 @@ wave engine's tree), unless ``build_scene_instanced`` is given
 ``legacy_bvh=False``: then ``bvh`` is None, where the JAX package stores a
 1-triangle placeholder, and the wave engine refuses the scene.
 
-Not ported: ``rebuild_scene`` (scene lifecycle, later work).
+``build_scene_instanced`` also returns the host-side ``InstancedScene``
+handle, and ``rebuild_scene`` moves instances with it (the per-frame
+Synchronise -> BuildTLAS step): the TLAS head and instance rows are
+rebuilt (``bvh/dense.py::refresh_tlas``), the moved instances' slices of
+the shading arrays are re-baked and scattered, and the BLAS and group
+tables are kept as they are. Every result tensor is new: nothing of the
+scene passed in is written, so it renders as before.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -27,7 +33,8 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import (GROUP_ROWS,
                                                              NODE_F, DenseBVH,
                                                              TLASMeta,
                                                              build_dense,
-                                                             build_dense_tlas)
+                                                             build_dense_tlas,
+                                                             refresh_tlas)
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays
 from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
@@ -268,6 +275,46 @@ def _dense_fits_fast_memory(dense: DenseBVH) -> bool:
     return n_nodes <= SMEM_NODE_LIMIT and n_groups <= VMEM_GROUP_LIMIT
 
 
+@dataclass
+class InstancedScene:
+    """Host-side handle of a scene built by ``build_scene_instanced``: what
+    ``rebuild_scene`` needs to track instance motion without rebuilding the
+    BLAS or group tables. ``prim_start`` / ``prim_count``: each instance's
+    slice of the scene's prim order."""
+
+    models: list[MeshModel]
+    instances: list[Instance]
+    tlas_meta: TLASMeta | None      # None = flattened (world-baked) layout
+    leaf_size: int
+    legacy_bvh: bool
+    prim_start: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    prim_count: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
+    dense_leaf_target: int = 16
+    dense_shape: bool = True
+
+
+def _instance_offsets(models, instances):
+    counts = np.array([models[i.model].n_tris for i in instances], np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return starts, counts
+
+
+def _bake_one(mdl: MeshModel, inst: Instance):
+    """World-space shading arrays of one instance (the unit of a refresh):
+    v0, e1, e2, face normals (T, 3) and corner normals (3T, 3), f32."""
+    m = inst.transform
+    nrm_m = inverse_transpose_3x3(m)
+    wc = transform_points(m, mdl.corners).astype(np.float32)
+    wn = mdl.normals @ nrm_m.T
+    wn /= np.maximum(np.linalg.norm(wn, axis=1, keepdims=True), 1e-20)
+    wf = mdl.face_normals @ nrm_m.T
+    wf /= np.maximum(np.linalg.norm(wf, axis=1, keepdims=True), 1e-20)
+    tri = wc.reshape(-1, 3, 3)
+    v0 = tri[:, 0]
+    return (v0, tri[:, 1] - v0, tri[:, 2] - v0,
+            wf.astype(np.float32), wn.astype(np.float32))
+
+
 def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           lights: LightSet | None = None,
                           sky: np.ndarray | None = None,
@@ -276,20 +323,21 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           legacy_bvh: bool = True,
                           flatten: bool | str = False,
                           device=DEFAULT_DEVICE,
-                          ) -> tuple[SceneData, TLASMeta | None, int]:
+                          ) -> tuple[SceneData, InstancedScene, int]:
     """Two-level build: shared BLAS per model + TLAS over instances.
 
     ``legacy_bvh``: also build the classic BVH over the world-baked
     triangles (``leaf_size`` per leaf; the wave engine's tree); False leaves
     ``SceneData.bvh`` None.
 
-    ``flatten``: False keeps the two-level structure; "auto" world-bakes
-    small scenes into one single-level tree when the flattened tables pass
-    the fast-memory check; True forces flattening.
+    ``flatten``: False keeps the two-level structure (the layout for scenes
+    that move: ``rebuild_scene`` then refreshes the TLAS only); "auto"
+    world-bakes small scenes into one single-level tree when the flattened
+    tables pass the fast-memory check; True forces flattening
+    (``rebuild_scene`` then rebuilds the dense table on motion).
 
-    Returns (scene_data, tlas_meta or None when flattened, depth): the
-    larger of the dense and the classic tree's depth, as in the JAX
-    package."""
+    Returns (scene_data, instanced_handle, depth): the larger of the dense
+    and the classic tree's depth, as in the JAX package."""
     device = resolve(device)
     baked = _bake_world(models, instances)
     do_flatten = (flatten is True) or (
@@ -314,4 +362,77 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
     if legacy_bvh:
         bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
         depth = max(bvh_depth(bvh), depth)
-    return _assemble(models, dense, baked, lights, sky, device, bvh), meta, depth
+    data = _assemble(models, dense, baked, lights, sky, device, bvh)
+    starts, counts = _instance_offsets(models, instances)
+    handle = InstancedScene(models=models, instances=list(instances),
+                            tlas_meta=meta, leaf_size=leaf_size,
+                            legacy_bvh=legacy_bvh, prim_start=starts,
+                            prim_count=counts,
+                            dense_leaf_target=dense_leaf_target,
+                            dense_shape=dense_shape)
+    return data, handle, depth
+
+
+def rebuild_scene(data: SceneData, handle: InstancedScene,
+                  instances: list[Instance], device=DEFAULT_DEVICE) -> SceneData:
+    """The scene after instance transform changes (mesh membership
+    unchanged: the same model in every instance slot), on ``device`` (where
+    ``data`` already lies, as a Renderer's scene does, nothing moves).
+
+    Instances whose transform changed (``np.allclose``) are re-baked, and
+    their prim slices of ``tri_v0/e1/e2``, ``face_normal`` and the
+    interleaved ``corner_normal`` are scattered into copies, one batched
+    scatter per array. A two-level table gets ``refresh_tlas`` (the BLAS
+    and group tensors are shared with ``data``); a flattened one
+    (``handle.tlas_meta is None``) is rebuilt by ``build_dense`` when
+    something moved; with ``handle.legacy_bvh`` the classic BVH is rebuilt
+    by the native builder. ``handle.instances`` becomes ``instances``.
+    Nothing of ``data`` is written."""
+    if len(instances) != len(handle.instances):
+        raise AssertionError("rebuild_scene: the instance count changed")
+    if any(a.model != b.model for a, b in zip(instances, handle.instances)):
+        raise AssertionError("rebuild_scene: an instance slot changed its model")
+    data = data.to(resolve(device))
+    dev = data.tri_v0.device
+
+    moved = [i for i, (a, b) in enumerate(zip(instances, handle.instances))
+             if not np.allclose(a.transform, b.transform)]
+    handle.instances = list(instances)
+    arrays = {k: getattr(data, k) for k in ("tri_v0", "tri_e1", "tri_e2",
+                                            "face_normal", "corner_normal")}
+    if moved:
+        parts = [_bake_one(handle.models[instances[i].model], instances[i])
+                 for i in moved]
+        idx = np.concatenate([np.arange(handle.prim_start[i],
+                                        handle.prim_start[i] + handle.prim_count[i])
+                              for i in moved])
+        cidx = np.concatenate([3 * idx, 3 * idx + 1, 3 * idx + 2])
+        wn = np.concatenate([p[4] for p in parts])
+        new = [np.concatenate([p[k] for p in parts]) for k in range(4)]
+        # corner normals are interleaved per prim (3P, 3): corner c of prim
+        # p at row 3p + c, so the values go corner by corner as cidx does
+        new.append(wn.reshape(-1, 3, 3).swapaxes(0, 1).reshape(-1, 3))
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        for (k, x), rows, vals in zip(arrays.items(), [idx] * 4 + [cidx], new):
+            arrays[k] = x.index_put((t(rows),), t(vals))
+    tris = [arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2")]
+    if handle.tlas_meta is not None:
+        transforms = np.stack([i.transform for i in instances]).astype(np.float32)
+        dense = refresh_tlas(data.dense, handle.tlas_meta, transforms)
+    elif moved:
+        dense, _ = build_dense(world_tris(*tris), leaf_target=handle.dense_leaf_target,
+                               shape=handle.dense_shape)
+        dense = dense.to(dev)
+    else:
+        dense = data.dense
+    bvh = data.bvh
+    if handle.legacy_bvh:
+        bvh = build_bvh(world_tris(*tris), leaf_size=handle.leaf_size).to(dev)
+    return dataclasses.replace(data, bvh=bvh, dense=dense, **arrays)
+
+
+def world_tris(tri_v0, tri_e1, tri_e2) -> np.ndarray:
+    """(P, 3, 3) world triangles from a scene's v0, e1, e2 tensors, on the
+    host, summed in f32 as the JAX package sums them."""
+    v0, e1, e2 = (x.cpu().numpy() for x in (tri_v0, tri_e1, tri_e2))
+    return np.stack([v0, v0 + e1, v0 + e2], axis=1)

@@ -385,9 +385,26 @@ def test_load_reference_scene_matches_jax(tmp_path, instanced):
     _agree(got_c.numpy(), np.asarray(want_c))
 
 
-def test_load_reference_scene_handle_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="InstancedScene"):
-        loader.load_reference_scene(str(tmp_path), return_handle=True, device="cpu")
+def test_load_reference_scene_handle_matches_jax(tmp_path):
+    """return_handle=True returns the InstancedScene that rebuild_scene
+    needs, equal to the JAX package's: models, instances, TLAS constants
+    and prim offsets; None with instanced=False."""
+    root = _write_tree(tmp_path)
+    *_, handle = loader.load_reference_scene(str(root), return_handle=True, device="cpu")
+    *_, jhandle = jloader.load_reference_scene(str(root), return_handle=True)
+    _same_models(handle.models, jhandle.models)
+    assert [dataclasses.asdict(i) for i in handle.instances] == \
+        [dataclasses.asdict(i) for i in jhandle.instances]
+    for k in ("leaf_size", "legacy_bvh", "dense_leaf_target", "dense_shape"):
+        assert getattr(handle, k) == getattr(jhandle, k), k
+    for k in ("prim_start", "prim_count"):
+        np.testing.assert_array_equal(getattr(handle, k), getattr(jhandle, k))
+    meta, jmeta = handle.tlas_meta, jhandle.tlas_meta
+    assert meta.tlas_cap == jmeta.tlas_cap
+    for k in ("inst_mesh", "blas_root", "blas_lo", "blas_hi"):
+        assert np.asarray(getattr(meta, k)).tobytes() == np.asarray(getattr(jmeta, k)).tobytes()
+    assert loader.load_reference_scene(str(root), instanced=False, return_handle=True,
+                                       device="cpu")[3] is None
 
 
 @pytest.mark.skipif(not os.path.exists(HELMET), reason="reference assets absent")

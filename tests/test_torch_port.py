@@ -20,12 +20,16 @@ pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
+from physically_based_ray_tracer_tpu.scene import scene as jscene_mod  # noqa: E402
+from physically_based_ray_tracer_tpu_torch import animate  # noqa: E402
 from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.bvh import cache  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.render import debugger  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.film import FilmState  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene import lights as lights_mod  # noqa: E402
@@ -34,8 +38,9 @@ from physically_based_ray_tracer_tpu_torch.scene import scene as tscene  # noqa:
 from physically_based_ray_tracer_tpu_torch.scene.camera import Camera, primary_rays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.session import EditSession  # noqa: E402
 from tests.torch_port import (SLICE_CFG, instanced_parts, instanced_scene,  # noqa: E402
-                              port_camera, port_config, port_instances,
+                              port_camera, port_config, port_handle, port_instances,
                               port_models, port_scene, scene_arrays)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -54,7 +59,9 @@ def test_port_imports_no_jax():
     assert "physically_based_ray_tracer_tpu_torch.ops.trace_rows" in mods
     for m in ("cli", "ops.tonemap", "utils.image", "utils.timer", "models.obj",
               "models.gltf", "models.textures", "models.resources",
-              "scene.serialization", "scene.loader", "scene.presets"):
+              "scene.serialization", "scene.loader", "scene.presets", "session",
+              "animate", "bvh.refit", "bvh.cache", "render.debugger",
+              "utils.debug_draw"):
         assert f"physically_based_ray_tracer_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
@@ -146,6 +153,8 @@ def _entry_points():
     """Every entry point that allocates, called without ``device=``."""
     models, instances, lights, jcam = instanced_parts()
     jscene, _ = instanced_scene()
+    jscene2, jhandle, _ = jscene_mod.build_scene_instanced(models, instances, lights,
+                                                           legacy_bvh=False)
     arrays = scene_arrays(jscene)
     d = arrays["dense"]
     scene = port_scene(jscene)
@@ -175,6 +184,18 @@ def _entry_points():
             lambda: lights_mod.lights_from_reference_json(str(ROOT / "absent"))),
         "BVHArrays.from_numpy": (BVHArrays.from_numpy, lambda: BVHArrays.from_numpy(
             np.zeros((1, 12)), np.zeros((1, 2)), np.zeros((16, 9)), np.zeros(16))),
+        "rebuild_scene": (tscene.rebuild_scene, lambda: tscene.rebuild_scene(
+            scene, port_handle(jhandle, jscene2.dense), port_instances(instances))),
+        "EditSession": (EditSession.__init__, lambda: EditSession(str(ROOT / "absent"))),
+        "trace_pixel": (debugger.trace_pixel, lambda: debugger.trace_pixel(
+            scene, cam, port_config(SLICE_CFG), 1, 1)),
+        "pixel_grid": (debugger.pixel_grid, lambda: debugger.pixel_grid(
+            scene, cam, port_config(SLICE_CFG), 1, 1)),
+        "load_bvh": (cache.load_bvh, lambda: cache.load_bvh(str(ROOT / "absent"))),
+        "load_dense": (cache.load_dense, lambda: cache.load_dense(str(ROOT / "absent"))),
+        "cached_build_bvh": (cache.cached_build_bvh, lambda: cache.cached_build_bvh(
+            str(ROOT / "absent"), np.zeros((1, 3, 3)), None)),
+        "animate.run": (animate.run, lambda: animate.run(frames=1, size=4)),
     }
 
 
@@ -182,7 +203,9 @@ ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scen
                 "build_scene_instanced", "Camera.make", "LightSet.make",
                 "DenseBVH.from_numpy", "FilmState.zeros", "BVHArrays.from_numpy",
                 "sphere_demo", "cornell_box", "load_reference_scene",
-                "lights_from_reference_json"]
+                "lights_from_reference_json", "rebuild_scene", "EditSession",
+                "trace_pixel", "pixel_grid", "load_bvh", "load_dense", "cached_build_bvh",
+                "animate.run"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

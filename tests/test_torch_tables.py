@@ -154,12 +154,12 @@ def test_instanced_auto_flatten_identical():
     j, jmeta, jdepth = jbuild_scene_instanced(models, instances, lights,
                                               legacy_bvh=False, flatten="auto")
     tl = scene_from_numpy(scene_arrays(j), device="cpu").lights
-    t, tmeta, tdepth = build_scene_instanced(port_models(models),
-                                             port_instances(instances), tl,
-                                             legacy_bvh=False, flatten="auto",
-                                             device="cpu")
+    t, thandle, tdepth = build_scene_instanced(port_models(models),
+                                               port_instances(instances), tl,
+                                               legacy_bvh=False, flatten="auto",
+                                               device="cpu")
     _same_scene(t, j)
-    assert (tmeta is None) == (jmeta.tlas_meta is None)
+    assert (thandle.tlas_meta is None) == (jmeta.tlas_meta is None)
     assert tdepth == jdepth
 
 

@@ -1,6 +1,7 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
-carry a scene or a configuration of the JAX package over to the port, and a
-small two-level instanced scene built identically by both packages."""
+carry a scene, its instanced handle or a configuration of the JAX package
+over to the port, and a small two-level instanced scene built identically
+by both packages."""
 
 import dataclasses
 import enum
@@ -18,8 +19,10 @@ from physically_based_ray_tracer_tpu.scene.scene import Instance as JInstance
 from physically_based_ray_tracer_tpu.scene.scene import MeshModel as JMeshModel
 from physically_based_ray_tracer_tpu.scene.scene import build_scene_instanced
 from physically_based_ray_tracer_tpu_torch import config as tconfig
+from physically_based_ray_tracer_tpu_torch.bvh import dense as tdense
 from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
 from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance,
+                                                               InstancedScene,
                                                                MeshModel,
                                                                scene_from_numpy)
 
@@ -86,6 +89,25 @@ def port_models(jmodels):
 def port_instances(jinstances):
     return [Instance(**{f.name: getattr(i, f.name)
                         for f in dataclasses.fields(i)}) for i in jinstances]
+
+
+def port_handle(jhandle, jdense):
+    """The port's InstancedScene from the JAX package's: the same models,
+    instances, TLASMeta and prim offsets. The TLASMeta also carries each
+    BLAS's stack need (port-only), counted on the JAX scene's ``jdense``
+    table as the port's own build counts it."""
+    meta = jhandle.tlas_meta
+    if meta is not None:
+        nodes = np.asarray(jdense.nodes16).reshape(-1, tdense.NODE_F)
+        need = np.array([tdense._walk_need(nodes, int(r)) for r in meta.blas_root],
+                        np.int64)
+        meta = tdense.TLASMeta(*(np.array(x) if isinstance(x, np.ndarray) else x
+                                 for x in meta), blas_need=need)
+    return InstancedScene(
+        models=port_models(jhandle.models), instances=port_instances(jhandle.instances),
+        tlas_meta=meta, leaf_size=jhandle.leaf_size, legacy_bvh=jhandle.legacy_bvh,
+        prim_start=np.array(jhandle.prim_start), prim_count=np.array(jhandle.prim_count),
+        dense_leaf_target=jhandle.dense_leaf_target, dense_shape=jhandle.dense_shape)
 
 
 def instanced_parts():
