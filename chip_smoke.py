@@ -193,8 +193,39 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    frame ms with the card's name and power limit, each kernel's launches
    over the phase (B1, B2, B3 and the fused level must launch), and the
    phase's seconds;
-13. prints the kernels' JSON line (each kernel's launches over phase 12
-   under ``dynamic_path_launches``), the card line and, last,
+13. the differentiable path (after 9): (a) the bench frame's gradient
+   (``diff/grad.py``): the L2 loss of the 1280x720 frame (4 bounces, AA,
+   one shadow ray, the default bf16 engine, key 0, sample 0) against its
+   own image at the scene's parameters, taken at perturbed albedo,
+   roughness, metalness, emission, point and directional light colours,
+   TRS of the 10 instances and camera position and target, with each of
+   ``render_chunked``'s chunks' backward run before the next chunk's
+   forward (``_frame_grad``; each chunk's squared error is summed over the
+   frame's element count, so the gradients sum to the frame's): one
+   warm-up and 2 timed runs, forward and backward ms, peak memory and the
+   two runs' gradient difference printed; B2 closest and any and B1's
+   retest launched, no plain version called, every group's gradient
+   finite and nonzero; then once with ``leaf_precision="f32"`` (B1 alone),
+   the bf16-vs-f32 gradient difference per group printed, not gated; (b)
+   1,024 pixels drawn over the frame (phase 9's draw), f32 engine: the
+   gradient on the card (B1) and on the CPU (plain) within
+   ``DIFF_CARD_VS_CPU`` (1e-2) of the CPU's norm per group; (c)
+   tests/test_grad.py's finite-difference checks on the card (albedo,
+   roughness, light intensity, emission, the TRS bake, rotation about an
+   offset pivot, the look-at chain) at the test's scene, size and
+   tolerances, through B1; (d) ``inverse_material.run()`` at its defaults
+   (64x64, 200 steps, bf16): the last loss below 20% of the first,
+   recovered and true albedo, roughness and point colour printed, ms per
+   step; (e) the same problem trained to step ``DIFF_CKPT_STEP`` (100),
+   checkpointed (``diff/checkpoint.py``, under ``build/``), trained 10
+   steps on, then loaded into fresh parameters and a fresh optimiser and
+   trained the same 10 steps: losses within ``DIFF_RESUME_RTOL`` (1e-5)
+   relative; (d)'s losses beside them printed. Prints each kernel's
+   launches over the phase (B1 and B2 must launch in both modes) and the
+   phase's seconds;
+14. prints the kernels' JSON line (each kernel's launches over phase 12
+   under ``dynamic_path_launches``, over phase 13 under
+   ``diff_path_launches``), the card line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -296,6 +327,16 @@ DYN_ORBIT = 3.3
 REFIT_AMP = 0.01
 BRUTE_RAYS = 1024
 MODULE_OF = {"f32": "trace", "bf16": "trace_bf16", "rows": "trace_rows"}
+# the differentiable path (phase 13): pixels of the card-vs-CPU gradient
+# (phase 9's draw); its gate, ||g_card - g_cpu|| <= 1e-2 ||g_cpu|| per group
+# (phase 9 lets <= 1% of pixels fork on t-ties, and the card's backward sums
+# in another order); the inverse-rendering step checkpointed and the steps
+# resumed after it; the resumed losses' largest relative difference
+DIFF_PIXELS = 1024
+DIFF_CARD_VS_CPU = 1e-2
+DIFF_CKPT_STEP = 100
+DIFF_RESUME_STEPS = 10
+DIFF_RESUME_RTOL = 1e-5
 SHARED_TABLES = ("groups", "groups_bf", "glo", "pids_c", "prim_base", "leaf_rec",
                  "groups_bf2")
 
@@ -1552,6 +1593,389 @@ def _dynamic_path(dev, card, cfg, engines, scene1, scene_w, sets):
     return report
 
 
+def _grad_groups(params) -> dict:
+    """{group name: gradient} of a parameter dict (instance_trs by member);
+    a leaf without a gradient counts as zeros."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import param_items
+    return {"/".join(p): (v.grad.detach().clone() if v.grad is not None
+                          else torch.zeros_like(v))
+            for p, v in param_items(params) if v.requires_grad}
+
+
+def _bench_grad_problem(dev, cfg):
+    """The bench frame's gradient problem: (scene, camera, target, start,
+    chunk). The target is the frame at the scene's own parameters (key 0,
+    sample 0); the start perturbs every group but the area lights' (the
+    bench scene has none): albedo, roughness, metalness, emission, point and
+    directional light colours, the TRS of the 10 instances and the camera's
+    position and target. ``chunk`` is render_chunked's chunk size."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (apply_params,
+                                                                 clone_params,
+                                                                 render_color,
+                                                                 trs_params_from_instances)
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+    scene, cam, _, handle = build_bench_scene(flatten="auto", return_handle=True, device=dev)
+    n_chunks = -(-cfg.n_pixels // cfg.chunk_pixels)
+    chunk = -(-cfg.n_pixels // n_chunks)
+    trs = trs_params_from_instances(handle.instances, device=dev)
+    true = {"base_color": scene.mat_base, "roughness": scene.mat_rough,
+            "metalness": scene.mat_metal, "emissive": scene.mat_emissive,
+            "point_color": scene.lights.point_color, "dir_color": scene.lights.dir_color,
+            "instance_trs": trs, "camera_pos": cam.pos, "camera_target": cam.target}
+    with torch.no_grad():
+        s, c = apply_params(scene, cam, true)
+        ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+        target = torch.cat([render_color(s, c, cfg, 0, 0, ids[i:i + chunk])
+                            for i in range(0, cfg.n_pixels, chunk)])
+    shift = lambda v, dx: v + torch.tensor(dx, dtype=torch.float32, device=dev)
+    wrong = clone_params({
+        "base_color": torch.clamp(scene.mat_base * 0.8 + 0.1, 0.0, 1.0),
+        "roughness": torch.clamp(scene.mat_rough + 0.1, 0.05, 1.0),
+        "metalness": torch.clamp(scene.mat_metal + 0.05, 0.0, 1.0),
+        "emissive": scene.mat_emissive + 0.02,
+        "point_color": scene.lights.point_color * 0.8,
+        "dir_color": scene.lights.dir_color * 1.2,
+        "instance_trs": {"position": trs["position"] + 0.01,
+                         "rotation": trs["rotation"] + 0.01,
+                         "scale": trs["scale"] * 1.005, "base_inv": trs["base_inv"]},
+        "camera_pos": shift(cam.pos, [0.02, 0.01, 0.0]),
+        "camera_target": shift(cam.target, [0.01, 0.0, 0.0])})
+    return scene, cam, target, wrong, chunk
+
+
+def _frame_grad(scene, cam, cfg, params, target, chunk):
+    """The L2 loss over every pixel of the frame and its gradient, chunk by
+    chunk: each chunk's loss is its squared error summed over the frame's
+    element count, so the summed gradients are the whole frame's mean. Each
+    chunk's backward runs before the next chunk's forward. Returns (grads,
+    loss, forward ms, backward ms), each phase ending in a device sync."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (apply_params, render_color,
+                                                                 trainable)
+    n = cfg.n_pixels
+    ids_all = torch.arange(n, dtype=torch.int32, device=target.device)
+    for v in trainable(params):
+        v.grad = None
+    fwd = bwd = 0.0
+    total = 0.0
+    for c0 in range(0, n, chunk):
+        ids = ids_all[c0:c0 + chunk]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, c = apply_params(scene, cam, params)
+        color = render_color(s, c, cfg, 0, 0, ids)
+        loss = torch.sum((color - target[c0:c0 + chunk]) ** 2) / (3 * n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if loss.requires_grad:        # else no lane of the chunk hit anything
+            loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd += t1 - t0
+        bwd += t2 - t1
+        total += float(loss.detach())
+    return _grad_groups(params), total, fwd * 1e3, bwd * 1e3
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b||."""
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _fd_grad_sphere(dev):
+    """tests/test_grad.py's scene and config on ``dev``: (scene, camera,
+    render_mean(params))."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.diff.grad import apply_params, render_color
+    from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
+    from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
+    from physically_based_ray_tracer_tpu_torch.scene.procedural import make_sphere
+    from physically_based_ray_tracer_tpu_torch.scene.scene import Instance, MeshModel, build_scene
+    cfg = RenderConfig(width=12, height=12, bounces=1, antialias=False, skybox=False,
+                       max_stack_depth=24, gamma_corrected=False, leaf_precision="f32")
+    sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=10, lon=12),
+                                base_color=(0.8, 0.3, 0.2), roughness=0.5)
+    lights = LightSet.make(point_pos=[[2, 3, 2]], point_color=[[15, 15, 15]],
+                           device=dev).pad_points(4)
+    scene, _ = build_scene([sphere], [Instance(0)], lights, device=dev)
+    cam = Camera.make(pos=(0, 0.5, 3.5), target=(0, 0, 0), device=dev)
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+
+    def render_mean(params):
+        s, c = apply_params(scene, cam, params)
+        return torch.mean(render_color(s, c, cfg, 0, 0, ids))
+
+    return scene, cam, render_mean
+
+
+def _fd_checks(dev):
+    """tests/test_grad.py's finite-difference checks on the card (B1, the
+    f32 engine), at the test's scene, sizes and tolerances. Returns
+    {check: largest |analytic - FD| over the compared elements}."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (apply_params,
+                                                                 grad_check_fd,
+                                                                 trs_params_from_instances)
+    from physically_based_ray_tracer_tpu_torch.scene.scene import Instance
+    scene, cam, render_mean = _fd_grad_sphere(dev)
+    out = {}
+
+    def value(f, x):
+        with torch.no_grad():
+            return float(f(torch.tensor(x, dtype=torch.float32, device=dev)))
+
+    def grad(f, x):
+        xg = x.detach().clone().requires_grad_(True)
+        return torch.autograd.grad(f(xg), xg)[0].cpu().numpy().astype(np.float64)
+
+    # _fd_check: every element, compared where either side exceeds 1e-7
+    for name, group, x0, eps, rtol in (
+            ("albedo", "base_color", scene.mat_base, 1e-2, 0.08),
+            ("roughness", "roughness", scene.mat_rough, 1e-2, 0.15),
+            ("light intensity", "point_color", scene.lights.point_color, 1e-1, 0.08),
+            ("emissive", "emissive", scene.mat_emissive + 0.5, 1e-2, 0.08)):
+        g, fd, _ = grad_check_fd(lambda x: render_mean({group: x}), x0, eps=eps)
+        mask = (np.abs(g) > 1e-7) | (np.abs(fd) > 1e-7)
+        _check(mask.any(), f"FD {name}: gradient identically zero")
+        np.testing.assert_allclose(g[mask], fd[mask], rtol=rtol, atol=1e-5,
+                                   err_msg=f"FD {name} on the card")
+        out[name] = float(np.abs(g[mask] - fd[mask]).max())
+    # the TRS bake, at the bake level (rtol 2e-2, atol 5e-2)
+    trs0 = trs_params_from_instances(
+        [Instance(0, position=(0.2, -0.1, 0.3), rotation=(0.3, 0.5, -0.2),
+                  scale=(1.2, 0.8, 1.1))], device=dev)
+    rng = np.random.RandomState(0)
+    w_v0 = torch.tensor(rng.randn(*scene.tri_v0.shape), dtype=torch.float32, device=dev)
+    w_fn = torch.tensor(rng.randn(*scene.face_normal.shape), dtype=torch.float32, device=dev)
+    names = ("position", "rotation", "scale")
+    for a, name in enumerate(names):
+        def f(x, a=a):
+            g = {**trs0, names[a]: x}
+            s, _ = apply_params(scene, cam, {"instance_trs": g})
+            return (torch.sum(w_v0 * s.tri_v0) + torch.sum(w_fn * s.face_normal)
+                    + torch.sum(s.tri_e1) + torch.sum(s.tri_e2))
+        g, fd, _ = grad_check_fd(f, trs0[name], eps=1e-3)
+        np.testing.assert_allclose(g, fd, rtol=2e-2, atol=5e-2,
+                                   err_msg=f"FD TRS bake {name} on the card")
+        out[f"TRS bake {name}"] = float(np.abs(g - fd).max())
+    # rotation about an offset pivot: finite; where FD is smooth and live,
+    # nonzero, sign-consistent and within its scale
+    trs1 = trs_params_from_instances([Instance(0, position=(0.35, 0.1, 0.0))], device=dev)
+    f = lambda rot: render_mean({"instance_trs": {**trs1, "rotation": rot}})
+    g = grad(f, trs1["rotation"])[0]
+    x = trs1["rotation"].cpu().numpy().astype(np.float64)
+
+    def fd_at(eps):
+        fd = np.zeros(3)
+        for i in range(3):
+            d = np.zeros_like(x)
+            d[0, i] = eps
+            fd[i] = (value(f, x + d) - value(f, x - d)) / (2 * eps)
+        return fd
+
+    fd1, fd2 = fd_at(5e-3), fd_at(2.5e-3)
+    _check(np.isfinite(g).all(), "FD rotation: gradient not finite")
+    smooth = np.abs(fd1 - fd2) < 0.5 * np.maximum(np.abs(fd1), np.abs(fd2)) + 1e-4
+    mask = smooth & (np.abs(fd1) > 5e-4)
+    _check(smooth.any(), "FD rotation: every component straddles a visibility flip")
+    if mask.any():
+        _check((np.abs(g[mask]) > 1e-5).any(), "FD rotation: gradient dead where FD is live")
+        _check(((np.sign(g[mask]) == np.sign(fd1[mask])) | (np.abs(g[mask]) < 1e-4)).all(),
+               f"FD rotation: gradient fights FD: {g[mask]} {fd1[mask]}")
+        _check((np.abs(g[mask]) <= np.abs(fd1[mask]) * 2.5 + 3e-3).all(),
+               f"FD rotation: gradient exceeds FD scale: {g[mask]} {fd1[mask]}")
+    out["rotation (components compared)"] = int(mask.sum())
+    # the look-at chain: camera position and target (rtol 0.4, atol 3e-3
+    # where |FD| > 1e-3)
+    for group, x0 in (("camera_pos", cam.pos), ("camera_target", cam.target)):
+        f = lambda x, group=group: render_mean({group: x})
+        g = grad(f, x0)
+        _check(np.isfinite(g).all(), f"FD {group}: gradient not finite")
+        xn = x0.cpu().numpy().astype(np.float64)
+        fd = np.zeros(3)
+        for i in range(3):
+            d = np.zeros_like(xn)
+            d[i] = 2e-3
+            fd[i] = (value(f, xn + d) - value(f, xn - d)) / 4e-3
+        mask = np.abs(fd) > 1e-3
+        if mask.any():
+            np.testing.assert_allclose(g[mask], fd[mask], rtol=0.4, atol=3e-3,
+                                       err_msg=f"FD {group} on the card")
+        out[group] = float(np.abs(g[mask] - fd[mask]).max()) if mask.any() else 0.0
+    return out
+
+
+def _diff_path(dev, card, cfg, engines):
+    """Phase 13: the differentiable path. Returns the phase's report (times,
+    memory, and each module's launches over the phase)."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch import inverse_material
+    from physically_based_ray_tracer_tpu_torch.diff.checkpoint import (load_checkpoint,
+                                                                       save_checkpoint)
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, apply_params,
+                                                                 clone_params, map_params,
+                                                                 render_color, trainable)
+    from physically_based_ray_tracer_tpu_torch.diff.inverse import make_train_step
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    report = {}
+    phase_counts = {}
+    for c in engines:
+        c.reset_counts()
+
+    def add_counts():
+        for c in engines:
+            acc = phase_counts.setdefault(c.__name__.rsplit(".", 1)[1], {})
+            for k, v in c.LAUNCHES.items():
+                acc[k] = acc.get(k, 0) + v
+            c.reset_counts()
+
+    # (a) the bench frame's gradient at full width, chunked as render_chunked
+    scene, cam, target, wrong, chunk = _bench_grad_problem(dev, cfg)
+    n_chunks = -(-cfg.n_pixels // chunk)
+    add_counts()
+    runs = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):                 # one warm-up and 2 timed
+        runs.append(_frame_grad(scene, cam, cfg, wrong, target, chunk))
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = {c.__name__.rsplit(".", 1)[1]: (dict(c.LAUNCHES), dict(c.PLAIN_CALLS))
+              for c in engines}
+    plain = sum(sum(v[1].values()) for v in counts.values())
+    add_counts()
+    g16, loss16 = runs[2][0], runs[2][1]
+    fwd = [r[2] for r in runs[1:]]
+    bwd = [r[3] for r in runs[1:]]
+    print(f"frame gradient 1280x720 4 bounces AA bf16, {n_chunks} chunks of {chunk} "
+          f"pixels: loss {loss16:.6e}; forward {fwd[0]:.2f} / {fwd[1]:.2f} ms, backward "
+          f"{bwd[0]:.2f} / {bwd[1]:.2f} ms (warm-up {runs[0][2]:.2f} + {runs[0][3]:.2f} ms); "
+          f"peak memory {peak / 2**30:.3f} GiB [{card}]", flush=True)
+    print("frame gradient, timed run 2 vs run 1, ||g2 - g1|| / ||g1|| per group: "
+          + json.dumps({k: float(f"{_rel(g16[k], runs[1][0][k]):.3e}") for k in g16}),
+          flush=True)
+    print(f"frame gradient (3 runs): B2 launches {counts['trace_bf16'][0]}, B1 launches "
+          f"{counts['trace'][0]} (retests), plain-version calls {plain}", flush=True)
+    _check(counts["trace_bf16"][0]["closest"] > 0 and counts["trace_bf16"][0]["any"] > 0,
+           "the gradient's bf16 frame did not launch both B2 modes")
+    _check(counts["trace"][0]["any"] > 0, "the gradient's bf16 frame launched no B1 retest")
+    _check(plain == 0, "the gradient's frame called a plain version")
+    for k, g in g16.items():
+        print(f"  grad {k}: norm {float(g.norm()):.6e}, finite {bool(torch.isfinite(g).all())}",
+              flush=True)
+        _check(bool(torch.isfinite(g).all()) and float(g.norm()) > 0,
+               f"frame gradient of {k} not finite or zero")
+    report.update(grad_forward_ms=fwd, grad_backward_ms=bwd, grad_peak_bytes=peak)
+    cfg32 = cfg.replace(leaf_precision="f32")
+    torch.cuda.reset_peak_memory_stats(dev)
+    g32, loss32, f32_fwd, f32_bwd = _frame_grad(scene, cam, cfg32, wrong, target, chunk)
+    peak32 = torch.cuda.max_memory_allocated(dev)
+    counts32 = {c.__name__.rsplit(".", 1)[1]: dict(c.LAUNCHES) for c in engines}
+    add_counts()
+    _check(counts32["trace"]["closest"] > 0 and sum(counts32["trace_bf16"].values()) == 0,
+           "the f32 gradient frame did not run on B1 alone")
+    print(f"frame gradient f32: loss {loss32:.6e}; forward {f32_fwd:.2f} ms, backward "
+          f"{f32_bwd:.2f} ms, peak memory {peak32 / 2**30:.3f} GiB [{card}]", flush=True)
+    print("bf16 vs f32 frame gradient, ||g16 - g32|| / ||g32|| per group (printed, not "
+          "gated): " + json.dumps({k: round(_rel(g16[k], g32[k]), 6) for k in g16}),
+          flush=True)
+
+    # (b) the card vs the CPU on 1,024 pixels drawn over the frame, f32 engine
+    ids = torch.from_numpy(_frame_pixels(cfg, DIFF_PIXELS, np.random.default_rng(1))).to(dev)
+
+    def pixel_grad(sc, cm, params, ids_, tgt):
+        for v in trainable(params):
+            v.grad = None
+        s, c = apply_params(sc, cm, params)
+        torch.mean((render_color(s, c, cfg32, 0, 0, ids_) - tgt) ** 2).backward()
+        return _grad_groups(params)
+
+    g_card = pixel_grad(scene, cam, wrong, ids, target[ids.long()])
+    add_counts()
+    t0 = time.perf_counter()
+    g_cpu = pixel_grad(scene.to("cpu"), cam.to("cpu"),
+                       clone_params(map_params(wrong, lambda k, x: x.detach().cpu())),
+                       ids.cpu(), target[ids.long()].cpu())
+    rel = {k: _rel(g_card[k].cpu(), g_cpu[k]) for k in g_cpu}
+    print(f"{DIFF_PIXELS}-pixel gradient, f32 engine, card (B1) vs CPU (plain, "
+          f"{time.perf_counter() - t0:.1f} s): ||g_card - g_cpu|| / ||g_cpu|| per group "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})}", flush=True)
+    for k, v in rel.items():
+        _check(v <= DIFF_CARD_VS_CPU, f"card vs CPU gradient of {k}: {v:.3e}")
+    report["card_vs_cpu"] = rel
+
+    # (c) tests/test_grad.py's finite-difference checks on the card
+    t0 = time.perf_counter()
+    fd = _fd_checks(dev)
+    print(f"FD checks on the card (B1), tests/test_grad.py's tolerances, "
+          f"{time.perf_counter() - t0:.1f} s: largest |grad - FD| {json.dumps(fd)}",
+          flush=True)
+    add_counts()
+
+    # (d) inverse rendering at the entry's defaults: 64x64, 200 steps, bf16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    demo, params, losses = inverse_material.run(device=dev, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_steps = len(losses)
+    host = lambda x: np.round(x.detach().cpu().numpy(), 3).tolist()
+    print(f"inverse_material (64x64, {n_steps} steps, bf16): loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f} ({losses[-1] / losses[0] * 100:.2f}% of the first); "
+          f"{wall:.2f} s with the scene build and target, "
+          f"{wall / n_steps * 1e3:.2f} ms/step [{card}]", flush=True)
+    print(f"  recovered albedo {host(params['base_color'])} true {host(demo.mat_base)}; "
+          f"roughness {host(params['roughness'])} true {host(demo.mat_rough)}; point colour "
+          f"{host(params['point_color'][0])} true {host(demo.lights.point_color[0])}",
+          flush=True)
+    _check(losses[-1] < losses[0] * 0.2, "inverse rendering: loss not below 20% of the first")
+    report["inverse_ms_per_step"] = wall / n_steps * 1e3
+    add_counts()
+
+    # (e) checkpoint at step DIFF_CKPT_STEP, resumed into fresh parameters and
+    # a fresh optimiser for DIFF_RESUME_STEPS steps
+    scene_d, cam_d, cfg_d, ids_d, target_d, start = inverse_material.problem(device=dev)
+
+    def train(params, opt, n):
+        step = make_train_step(scene_d, cam_d, cfg_d, opt)
+        return [float(step(params, 0, 0, ids_d, target_d)) for _ in range(n)]
+
+    params = clone_params(start)
+    opt = adam(params, inverse_material.LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = train(params, opt, DIFF_CKPT_STEP)
+    ms_step = (time.perf_counter() - t0) / DIFF_CKPT_STEP * 1e3
+    path = save_checkpoint(os.path.join(root, "build", "diff_checkpoint"), params, opt,
+                           DIFF_CKPT_STEP)
+    straight = train(params, opt, DIFF_RESUME_STEPS)
+    fresh = clone_params(start)
+    loaded, state, at = load_checkpoint(path, fresh, adam(fresh, inverse_material.LR))
+    opt2 = adam(loaded, inverse_material.LR)
+    opt2.load_state_dict(state)
+    resumed = train(loaded, opt2, DIFF_RESUME_STEPS)
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    gap = rel(resumed, straight)
+    print(f"checkpoint at step {at} ({os.path.relpath(path, root)}), {DIFF_RESUME_STEPS} "
+          f"steps resumed vs uninterrupted: largest relative loss difference {gap:.3e}; "
+          f"this run vs (d)'s: steps 1-{DIFF_CKPT_STEP} {rel(first, losses):.3e}, "
+          f"resumed {rel(resumed, losses[DIFF_CKPT_STEP:]):.3e}; "
+          f"{ms_step:.2f} ms/step [{card}]", flush=True)
+    _check(at == DIFF_CKPT_STEP and gap <= DIFF_RESUME_RTOL,
+           f"checkpoint resume: losses {resumed} vs {straight}")
+    report["train_ms_per_step"] = ms_step
+    add_counts()
+    report["launches"] = phase_counts
+    print(f"differentiable path launches (phase total): {json.dumps(phase_counts)}",
+          flush=True)
+    _check(phase_counts["trace"]["closest"] > 0 and phase_counts["trace"]["any"] > 0
+           and phase_counts["trace_bf16"]["closest"] > 0
+           and phase_counts["trace_bf16"]["any"] > 0,
+           "the differentiable path did not launch B1 and B2 in both modes")
+    return report
+
 def main() -> int:
     import torch
 
@@ -1908,7 +2332,13 @@ def main() -> int:
         _chunk_gpu_vs_cpu(r32, cfg32, F32_CHUNK, 0.99, "f32 engine")
         _chunk_gpu_vs_cpu(r16, cfg, BF16_CHUNK, 0.98, "bf16 engine")
 
-    # 13. result lines
+    # 13. the differentiable path: the bench frame's gradient, card vs CPU,
+    # FD checks, inverse rendering, checkpoint resume
+    with _Phase("differentiable path") as ph:
+        diff = _diff_path(dev, card, cfg, engines)
+    print(f"differentiable path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
+
+    # 14. result lines
     def err(eng, mode):
         if eng == "bf16":
             rep = rep_bf16
@@ -1921,6 +2351,10 @@ def main() -> int:
     def dyn_launches(module, mode):
         """The kernel's launches over phase 12 (the dynamic-scene path)."""
         return dyn["launches"].get(module, {}).get(mode, 0)
+
+    def diff_launches(module, mode):
+        """The kernel's launches over phase 13 (the differentiable path)."""
+        return diff["launches"].get(module, {}).get(mode, 0)
 
     kernels = []
     for eng, launches in (("f32", launches32), ("bf16", launches16),
@@ -1935,7 +2369,8 @@ def main() -> int:
                             "launches": launches[mode], "max_abs_err": err(eng, mode),
                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": None,
-                            "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode)})
+                            "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode),
+                            "diff_path_launches": diff_launches(MODULE_OF[eng], mode)})
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does, and
                 # the warps that left the shared walk
@@ -1954,7 +2389,9 @@ def main() -> int:
                  "source": src, "replaces": replaces, "launches": launches, **w,
                  "library_ms": None, "main_path": "inside wave_level",
                  "dynamic_path_launches": dyn_launches(name, "scan" if name == "wave_scan"
-                                                       else mode)}
+                                                       else mode),
+                 "diff_path_launches": diff_launches(name, "scan" if name == "wave_scan"
+                                                     else mode)}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
@@ -1968,6 +2405,7 @@ def main() -> int:
                         **{k: v for k, v in w.items() if k != "heaviest"}, "set": sname,
                         "library_ms": None, "port_only": True,
                         "dynamic_path_launches": dyn_launches("wave_level", mode),
+                        "diff_path_launches": diff_launches("wave_level", mode),
                         "registers": max((u["registers"] for u in level_use.values()),
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())

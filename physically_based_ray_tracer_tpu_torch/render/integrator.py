@@ -105,7 +105,13 @@ def _use_bf16(cfg: RenderConfig, dense) -> bool:
 def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
              refine="exact") -> Hit:
     """refine="fast" (trace_paths): the bf16 engine decodes the prim only,
-    the integrator refines (t, u, v) itself. The exact engines ignore it."""
+    the integrator refines (t, u, v) itself. The exact engines ignore it.
+
+    The traversal is a discrete search and carries no gradient: the rays and
+    t_max are detached here, for every engine (the JAX package's
+    ``stop_gradient`` at its traversal calls). The differentiable (t, u, v)
+    come from ``refine_hit`` over the hit triangle."""
+    o, d, t_max = _detached(o, d, t_max)
     sort = sort and cfg.sort_rays
     if cfg.traversal == "pallas_rows":
         fn = trace_rows.sorted_rows_closest if sort else trace_rows.rows_closest_dense
@@ -124,12 +130,18 @@ def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
     return fn(scene.dense, o, d, t_max)
 
 
+def _detached(o, d, t_max):
+    return o.detach(), d.detach(), None if t_max is None else t_max.detach()
+
+
 def _wave_kw(cfg: RenderConfig) -> dict:
     return dict(tile=cfg.packet_tile, stack_depth=cfg.max_stack_depth,
                 leaf_size=cfg.leaf_size, dense=cfg.dense, shrink=cfg.wave_shrink)
 
 
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
+    """Occlusion of each ray; the rays and t_max are detached, as in _closest."""
+    o, d, t_max = _detached(o, d, t_max)
     sort = sort and cfg.sort_rays
     if cfg.traversal == "wave":
         tp = traverse_packet

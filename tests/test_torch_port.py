@@ -21,12 +21,13 @@ import torch  # noqa: E402
 
 from physically_based_ray_tracer_tpu import config as jconfig  # noqa: E402
 from physically_based_ray_tracer_tpu.scene import scene as jscene_mod  # noqa: E402
-from physically_based_ray_tracer_tpu_torch import animate  # noqa: E402
+from physically_based_ray_tracer_tpu_torch import animate, inverse_material  # noqa: E402
 from physically_based_ray_tracer_tpu_torch import config as tconfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh import cache  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.diff import grad as dgrad  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
 from physically_based_ray_tracer_tpu_torch.render import debugger  # noqa: E402
@@ -61,7 +62,8 @@ def test_port_imports_no_jax():
               "models.gltf", "models.textures", "models.resources",
               "scene.serialization", "scene.loader", "scene.presets", "session",
               "animate", "bvh.refit", "bvh.cache", "render.debugger",
-              "utils.debug_draw"):
+              "utils.debug_draw", "diff.grad", "diff.inverse", "diff.checkpoint",
+              "inverse_material"):
         assert f"physically_based_ray_tracer_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
@@ -196,6 +198,13 @@ def _entry_points():
         "cached_build_bvh": (cache.cached_build_bvh, lambda: cache.cached_build_bvh(
             str(ROOT / "absent"), np.zeros((1, 3, 3)), None)),
         "animate.run": (animate.run, lambda: animate.run(frames=1, size=4)),
+        "inverse_material.run": (inverse_material.run,
+                                 lambda: inverse_material.run(steps=1, size=4)),
+        "params_from_numpy": (dgrad.params_from_numpy,
+                              lambda: dgrad.params_from_numpy({"roughness": [0.5]})),
+        "trs_params_from_instances": (dgrad.trs_params_from_instances,
+                                      lambda: dgrad.trs_params_from_instances(
+                                          port_instances(instances))),
     }
 
 
@@ -205,7 +214,8 @@ ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scen
                 "sphere_demo", "cornell_box", "load_reference_scene",
                 "lights_from_reference_json", "rebuild_scene", "EditSession",
                 "trace_pixel", "pixel_grid", "load_bvh", "load_dense", "cached_build_bvh",
-                "animate.run"]
+                "animate.run", "inverse_material.run", "params_from_numpy",
+                "trs_params_from_instances"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
