@@ -223,10 +223,44 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    relative; (d)'s losses beside them printed. Prints each kernel's
    launches over the phase (B1 and B2 must launch in both modes) and the
    phase's seconds;
+15. the classic-BVH path (after 13): (a) the torch engines over the bench
+   scene's classic BVH (``legacy_bvh=True``, 16 triangles a leaf, depth
+   15) on the three ray sets, as the integrator calls them (the lane engine
+   unsorted and sorted, the packet engine sorted; closest and any): each
+   against B1 on the two-level table within phase 10c's bounds, lane =
+   packet (t bit-equal in practice, gated at 1e-6 relative, wherever brute
+   force over the world triangles sees no t-tie; equal found masks and
+   occlusion), the lane engine's sorted and unsorted calls equal, the
+   engines' CUDA-graph step blocks bit-equal to the same steps run op by
+   op (the lane engine on the three sets, the packet engine on the primary
+   set's first PACKET_EAGER_RAYS rays), no overflow push (stack depth 48);
+   each call's ms and steps printed; (b) the bench frame with
+   ``traversal="lane"`` and ``"packet"``, one tick each (phase 10d's key;
+   the packet frame takes ~3.5 minutes): >= 99.99% of pixels allclose
+   (rtol 2e-4, atol 2e-5) to phase 10d's wave frame, no kernel launched
+   (B1-B4, the scan, the fused level), no plain version called, a finite
+   image; wall ms, steps and peak memory printed; (c) hq dense tables
+   (``build_dense(hq=True)`` of the flattened bench triangles,
+   ``build_dense_tlas(hq=True)`` of the two-level scene, the scene's leaf
+   target and shaping): host build ms beside the binned builds' (which
+   must equal the scene's tables); on both hq tables and the primary and
+   bounce sets B1 and B3 = their plain version, B3 vs B1, B2 = its plain
+   version outside near-tie lanes (phases 2-3's comparators); B1 = brute
+   force on the primary set (found, t within 1e-6 relative, prim outside
+   t-ties); B1 and B2 timed on each hq table beside the standard one
+   (CUDA events behind the ~1 ms sleep, with their bounds from the
+   counting instantiations); one f32 frame on the hq two-level tables >=
+   99.9% allclose to phase 7's f32 frame; (d) the sort modes
+   (``trace.SORT_MODES``) on the two-level table and the three sets: B1's
+   results bit-equal under all three, B3's t and occlusion too and its
+   prims outside t-ties; B2 = its plain version on the same sorted order
+   under each mode besides the default on SORT_B2_SETS. Prints each
+   kernel's launches over the phase (B1, B2 and B3 must launch) and the
+   phase's seconds;
 14. prints the kernels' JSON line (each kernel's launches over phase 12
    under ``dynamic_path_launches``, over phase 13 under
-   ``diff_path_launches``), the card line and, last,
-   ``{"ok": true, "device": {...}}``.
+   ``diff_path_launches``, over phase 15 under ``classic_path_launches``),
+   the card line and, last, ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without that line.
@@ -339,6 +373,16 @@ DIFF_RESUME_STEPS = 10
 DIFF_RESUME_RTOL = 1e-5
 SHARED_TABLES = ("groups", "groups_bf", "glo", "pids_c", "prim_base", "leaf_rec",
                  "groups_bf2")
+# the classic-BVH path (phase 15): the torch engines over the classic BVH;
+# the rays on which the packet engine's CUDA-graph blocks are held to its
+# op-by-op steps (each op-by-op step costs ~100 launches); the hq f32
+# frame's share of pixels allclose to the f32 frame (only t-tie forks may
+# differ); the sets on which B2 is held to its plain version under each
+# sort mode besides the default (phase 3 covers octant_major)
+CLASSIC_ENGINES = ("lane", "packet")
+PACKET_EAGER_RAYS = 4096
+HQ_FRAME_CLOSE = 0.999
+SORT_B2_SETS = ("bounce",)
 
 
 def _smi() -> str:
@@ -487,19 +531,19 @@ def _rows_vs_f32(name, h3, occ3, h1, occ1):
     _check(r["occ_mismatch"] == 0, f"{name}: B3 occlusion differs from B1's")
 
 
-def _compare_bf16(name, dbvh, o, d, tm, report):
+def _compare_bf16(name, dbvh, o, d, tm, report, sort_mode="octant_major"):
     """B2 vs its plain version on the co-sorted rays (the sweep lanes the
-    main path gives them), and the sorted wrappers vs the kernel's own
-    decoded result."""
+    main path gives them; ``sort_mode``: morton_key's mode), and the sorted
+    wrappers vs the kernel's own decoded result."""
     import torch
     from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16 as tb
-    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm, sort_mode)
     # closest
     t_k, gk_k, i_k = tb._call_bf16(dbvh, o_s, d_s, tm_s, closest=True)
     t_p, gk_p, i_p, near = tb.plain_traverse_bf16(dbvh, o_s, d_s, tm_s, True)
     hk = tb._decode_fast(dbvh, t_k, gk_k, i_k)
     hp = tb._decode_fast(dbvh, t_p, gk_p, i_p)
-    wrapped = tb.sorted_closest_bf16(dbvh, o, d, tm, refine="fast")
+    wrapped = tb.sorted_closest_bf16(dbvh, o, d, tm, sort_mode=sort_mode, refine="fast")
     unsorted = [trace._unsort(perm, x) for x in hk]
     same_key = (gk_k == gk_p) & (i_k == i_p)
     found_k, found_p = gk_k >= 0, gk_p >= 0
@@ -507,7 +551,7 @@ def _compare_bf16(name, dbvh, o, d, tm, report):
     cert_k, unc_k = tb._call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
     cert_p, unc_p, near_tm = tb.plain_traverse_bf16(dbvh, o_s, d_s, tm_s, False)
     need_k, need_p = unc_k & ~cert_k, unc_p & ~cert_p
-    occ_k = tb.sorted_any_bf16(dbvh, o, d, tm)
+    occ_k = tb.sorted_any_bf16(dbvh, o, d, tm, sort_mode=sort_mode)
     exact = trace.plain_traverse(dbvh, o_s, d_s, torch.where(need_p, tm_s, 0.0), False)
     occ_p = trace._unsort(perm, cert_p | (need_p & exact))
     near_tm_u = trace._unsort(perm, near_tm)
@@ -1976,6 +2020,335 @@ def _diff_path(dev, card, cfg, engines):
            "the differentiable path did not launch B1 and B2 in both modes")
     return report
 
+def _classic_calls(bvh, o, d, tm, cfg):
+    """Phase 15's engine calls on one set, as the integrator makes them (the
+    lane engine unsorted, as the JAX dispatch runs it, and sorted too; the
+    packet engine sorted): {(engine, sorted, mode): call}."""
+    from physically_based_ray_tracer_tpu_torch.ops import traverse as tr
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    lane = dict(stack_depth=cfg.max_stack_depth, leaf_size=cfg.leaf_size)
+    packet = dict(lane, tile=cfg.packet_tile)
+    return {
+        ("lane", False, "closest"): lambda: tr.intersect_closest(bvh, o, d, tm, **lane),
+        ("lane", False, "any"): lambda: tr.intersect_any(bvh, o, d, tm, **lane),
+        ("lane", True, "closest"): lambda: tp.sorted_closest(tr.intersect_closest, bvh, o, d,
+                                                             tm, **lane),
+        ("lane", True, "any"): lambda: tp.sorted_any(tr.intersect_any, bvh, o, d, tm, **lane),
+        ("packet", True, "closest"): lambda: tp.sorted_closest(tp.intersect_closest_packet,
+                                                               bvh, o, d, tm, **packet),
+        ("packet", True, "any"): lambda: tp.sorted_any(tp.intersect_any_packet, bvh, o, d,
+                                                       tm, **packet)}
+
+
+def _classic_engines_vs_b1(scene_w, dbvh, sets, cfg, card):
+    """Phase 15a: the lane and packet engines on the classic BVH against each
+    other (t where brute force sees no t-tie, occlusion) and against B1 on
+    the dense table (phase 10c's bounds); each call's ms and steps."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import trace, traverse
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    from physically_based_ray_tracer_tpu_torch.scene.scene import world_tris
+    bvh = scene_w.bvh
+    tri = world_tris(scene_w.tri_v0, scene_w.tri_e1, scene_w.tri_e2)
+    dev = bvh.tris.device
+    out = {}
+    for sname, (o, d, tm) in sets.items():
+        _, _, tie = _brute_closest(o, d, tri)
+        h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+        occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
+        res = {}
+        for (engine, srt, mode), call in _classic_calls(bvh, o, d, tm, cfg).items():
+            steps = traverse.STEPS if engine == "lane" else tp.PACKET_STEPS
+            before = steps[mode]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            res[(engine, srt, mode)] = r
+            n = steps[mode] - before
+            out[(engine, srt, mode, sname)] = (ms, n)
+            label = f"{engine} {'sorted' if srt else 'unsorted':8s} {mode:7s} {sname:7s}"
+            if mode == "closest":
+                fw, f1 = r.prim >= 0, h1.prim >= 0
+                both = fw & f1
+                rep = dict(found_mismatch=float((fw != f1).float().mean()),
+                           same_prim=float(((r.prim == h1.prim) & both).sum()
+                                           / both.sum().clamp(min=1)),
+                           t_max_rel=float(((r.t - h1.t).abs() / h1.t.abs())[both].max()))
+                ok = (rep["found_mismatch"] <= WAVE_VS_B1 and rep["same_prim"] >= WAVE_SAME_PRIM)
+            else:
+                rep = dict(occ_mismatch=float((r != occ1).float().mean()))
+                ok = rep["occ_mismatch"] <= WAVE_VS_B1
+            print(f"  {label} {N_RAYS} rays: {ms:.2f} ms host clock, {n} steps; vs B1 "
+                  f"{json.dumps(rep)} [{card}]", flush=True)
+            _check(ok, f"{label}: the engine vs B1 outside phase 10c's bounds")
+        # lane = packet: t where brute force sees no t-tie, found, occlusion
+        lane_h, packet_h = res[("lane", True, "closest")], res[("packet", True, "closest")]
+        fl, fp = lane_h.prim >= 0, packet_h.prim >= 0
+        both = fl & fp & ~tie
+        rel = ((lane_h.t - packet_h.t).abs() / packet_h.t.abs())[both]
+        r = dict(found_mismatch=int(((fl != fp) & ~tie).sum()),
+                 t_max_rel=float(rel.max()) if rel.numel() else 0.0,
+                 prim_mismatch=int(((lane_h.prim != packet_h.prim) & both).sum()),
+                 occ_mismatch=int((res[("lane", True, "any")] != res[("packet", True, "any")])
+                                  .sum()),
+                 unsorted_vs_sorted=int(sum(int((a != b).sum()) for a, b in zip(
+                     res[("lane", False, "closest")], lane_h)))
+                 + int((res[("lane", False, "any")] != res[("lane", True, "any")]).sum()),
+                 ties=int(tie.sum()))
+        print(f"  lane vs packet {sname}: {json.dumps(r)}", flush=True)
+        _check(r["found_mismatch"] == 0 and r["t_max_rel"] <= T_RTOL,
+               f"{sname}: lane and packet differ in t outside t-ties")
+        _check(r["occ_mismatch"] == 0, f"{sname}: lane and packet occlusion differ")
+        _check(r["unsorted_vs_sorted"] == 0, f"{sname}: the lane engine's sorted and "
+               "unsorted calls differ")
+    # the step blocks as CUDA graphs (the engines' default on the card) vs
+    # run op by op: the lane engine on the three sets, the packet engine on
+    # the primary set's first PACKET_EAGER_RAYS rays (Morton-ordered, so its
+    # tiles finish within a few hundred steps)
+    graphs = []
+    for sname, (o, d, tm) in sets.items():
+        n = N_RAYS if sname != "primary" else PACKET_EAGER_RAYS
+        for key, call in _classic_calls(bvh, o[:n], d[:n], tm[:n], cfg).items():
+            if key[1] is False or (key[0] == "packet" and sname != "primary"):
+                continue
+            runs = []
+            for use in (True, False):
+                traverse.CUDA_GRAPHS = use
+                r = call()
+                runs.append([r] if isinstance(r, torch.Tensor) else list(r))
+            traverse.CUDA_GRAPHS = True
+            differ = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(*runs))
+            graphs.append(differ)
+            print(f"  {key[0]} {key[2]} {sname} ({n} rays): CUDA-graph blocks vs op by op, "
+                  f"{differ} elements differ", flush=True)
+    _check(not any(graphs), "the CUDA-graph step blocks differ from the op-by-op steps")
+    pushes = traverse.overflow_pushes(dev)
+    print(f"  stack overflow pushes (lane + packet, stack depth {cfg.max_stack_depth}, "
+          f"tree depth 15): {pushes}", flush=True)
+    _check(pushes == 0, "the classic engines overflowed their stack")
+    return out
+
+
+def _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w, cam, sets,
+                  first_wave, first32):
+    """Phase 15: the classic-BVH path: (a) the lane and packet engines vs each
+    other and vs B1; (b) the bench frame with each; (c) hq dense tables
+    (SBVH builds): builds timed against the binned ones, B1-B3 against their
+    plain versions and B1 against brute force, B1 and B2 timed beside the
+    standard tables with their bounds, an f32 frame on the hq two-level
+    tables; (d) the sort modes. Returns the phase's report (times and each
+    module's launches over the phase)."""
+    import dataclasses
+    import torch
+    from physically_based_ray_tracer_tpu_torch.bvh import native
+    from physically_based_ray_tracer_tpu_torch.bvh.dense import build_dense, build_dense_tlas
+    from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16, trace_rows, traverse
+    from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.scene import _bake_world
+
+    report = {}
+    phase_counts = {}
+    for c in engines:
+        c.reset_counts()
+
+    def add_counts():
+        for c in engines:
+            acc = phase_counts.setdefault(c.__name__.rsplit(".", 1)[1], {})
+            for k, v in c.LAUNCHES.items():
+                acc[k] = acc.get(k, 0) + v
+            c.reset_counts()
+
+    # (a) the engines against each other and B1
+    t0 = time.perf_counter()
+    report["calls"] = _classic_engines_vs_b1(scene_w, scene2.dense, sets, cfg, card)
+    add_counts()
+    print(f"15a: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) the bench frame with each engine, one tick, phase 10d's key
+    for engine in CLASSIC_ENGINES:
+        t0 = time.perf_counter()
+        r = Renderer(scene_w, cam, cfg.replace(traversal=engine), device=dev)
+        steps = traverse.STEPS if engine == "lane" else tp.PACKET_STEPS
+        traverse.reset_counts()
+        tp.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first, _, warm, _, counts = _frame(r, 0, engines)
+        report[f"{engine}_frame_ms"] = warm * 1e3
+        close = np.isclose(first, first_wave, rtol=2e-4, atol=2e-5).all(axis=-1)
+        print(f"frame 1280x720 4 bounces AA {engine}: {warm * 1e3:.2f} ms (one tick), steps "
+              f"{dict(steps)}, peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB [{card}]", flush=True)
+        print(f"  vs the wave frame (same key): {close.mean() * 100:.4f}% pixels allclose "
+              f"({int((~close).sum())} differ), max abs diff "
+              f"{float(np.abs(first - first_wave).max()):.3e}", flush=True)
+        launched = {k: v[0] for k, v in counts.items()}
+        plain = sum(sum(v[1].values()) for v in counts.values())
+        print(f"  {engine} frame: launches {json.dumps(launched)}, plain-version calls {plain}",
+              flush=True)
+        _check(all(sum(v.values()) == 0 for v in launched.values()),
+               f"the {engine} frame launched a kernel")
+        _check(plain == 0, f"the {engine} frame called a plain version")
+        _check(steps["closest"] > 0 and steps["any"] > 0, f"the {engine} frame ran no step")
+        _check(first.shape == (720, 1280, 3) and bool(np.isfinite(first).all()),
+               f"{engine} image not finite or of the wrong shape")
+        _check(close.mean() >= WAVE_FRAME_CLOSE, f"the {engine} frame vs the wave frame")
+        _check(traverse.overflow_pushes(dev) == 0, f"the {engine} frame overflowed its stack")
+        add_counts()
+        print(f"15b {engine}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) hq dense tables: the builds, the kernels on them, an f32 frame
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    native.get_sbvh_lib()
+    print(f"SBVH builder library: {time.perf_counter() - t1:.2f} s (g++ or reuse)", flush=True)
+    tri = _bake_world(handle2.models, handle2.instances)["tri"]
+    mesh_tris = [m.corners.reshape(-1, 3, 3).astype(np.float32) for m in handle2.models]
+    inst_mesh = np.array([i.model for i in handle2.instances], np.int64)
+    transforms = np.stack([i.transform for i in handle2.instances]).astype(np.float32)
+    kw = dict(leaf_target=handle2.dense_leaf_target, shape=handle2.dense_shape)
+    builds = {}
+    for name, fn in (
+            ("one-level hq", lambda: build_dense(tri, hq=True, **kw)[0]),
+            ("one-level binned", lambda: build_dense(tri, **kw)[0]),
+            ("two-level hq", lambda: build_dense_tlas(mesh_tris, inst_mesh, transforms,
+                                                      hq=True, **kw)[0]),
+            ("two-level binned", lambda: build_dense_tlas(mesh_tris, inst_mesh, transforms,
+                                                          **kw)[0])):
+        t1 = time.perf_counter()
+        table = fn()
+        ms = (time.perf_counter() - t1) * 1e3
+        builds[name] = table
+        report[f"build_ms {name}"] = ms
+        print(f"build {name}: {ms:.2f} ms host clock, {table.n_nodes} nodes, "
+              f"{table.n_groups} groups, {int((table.pids_c >= 0).sum())} triangle "
+              f"references, stack need {table.stack_need} [{card}]", flush=True)
+    for level, std in (("one-level", scene1.dense), ("two-level", scene2.dense)):
+        _check(torch.equal(builds[f"{level} binned"].nodes16, std.nodes16.cpu()),
+               f"{level}: the binned build differs from the scene's table")
+    hq = {"one-level": builds["one-level hq"].to(dev),
+          "two-level": builds["two-level hq"].to(dev)}
+    std = {"one-level": scene1.dense, "two-level": scene2.dense}
+    rep_hq = []
+    for tname, dbvh in hq.items():
+        for sname in ("primary", "bounce"):
+            o, d, tm = sets[sname]
+            name = f"hq {tname}/{sname}"
+            ref = _plain_ref(dbvh, o, d, tm)
+            h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+            occ1 = trace.sorted_any_dense(dbvh, o, d, tm)
+            _compare_exact("B1", name, h1, occ1, ref, rep_hq)
+            h3 = trace_rows.sorted_rows_closest(dbvh, o, d, tm)
+            occ3 = trace_rows.sorted_rows_any(dbvh, o, d, tm)
+            _compare_exact("B3", name, h3, occ3, ref, rep_hq)
+            _rows_vs_f32(name, h3, occ3, h1, occ1)
+            _compare_bf16(name, dbvh, o, d, tm, rep_hq)
+        # B1 against brute force over the world triangles, primary set
+        o, d, tm = sets["primary"]
+        t_b, p_b, tie_b = _brute_closest(o, d, tri)
+        h1 = trace.sorted_closest_dense(dbvh, o, d, tm)
+        f1, fb = h1.prim >= 0, p_b >= 0
+        both = f1 & fb
+        r = dict(found_mismatch=int((f1 != fb).sum()),
+                 t_max_rel=float(((h1.t - t_b).abs() / t_b.abs())[both].max()),
+                 prim_mismatch=int(((h1.prim != p_b) & both & ~tie_b).sum()),
+                 ties=int(tie_b.sum()))
+        print(f"  B1 vs brute force hq {tname}/primary: {json.dumps(r)}", flush=True)
+        _check(r["found_mismatch"] == 0 and r["prim_mismatch"] == 0,
+               f"hq {tname}: B1's hits differ from brute force")
+        # the two-level walk intersects in object space (the ray moved by the
+        # instance's inverse transform), so its t rounds otherwise than the
+        # world-space brute force: there t is held to the plain version above
+        _check(tname == "two-level" or r["t_max_rel"] <= T_RTOL,
+               f"hq {tname}: B1's t differs from brute force")
+    for m in (trace, trace_rows, trace_bf16):
+        _check(m.truncated_rays(dev) == 0, f"{m.__name__}: rays truncated on an hq table")
+    add_counts()
+    # B1 and B2 timed on the hq tables beside the standard ones, with bounds
+    hq_times = {}
+    counters = {"f32": (trace.count_work, lambda db, o, d, tm, c: trace._traverse(
+        db, o, d, tm, c)), "bf16": (trace_bf16.count_work, lambda db, o, d, tm, c:
+                                    trace_bf16._call_bf16(db, o, d, tm, c))}
+    for tname in ("one-level", "two-level"):
+        for sname in ("primary", "bounce"):
+            o, d, tm = sets[sname]
+            for kind, dbvh in (("hq", hq[tname]), ("std", std[tname])):
+                _, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, tm)
+                for mode in ("closest", "any"):
+                    closest = mode == "closest"
+                    for eng, (count, launch) in counters.items():
+                        k_ms = _time_ms(lambda: launch(dbvh, o_s, d_s, tm_s, closest),
+                                        ahead=True)
+                        w = count(dbvh, o_s, d_s, tm_s, closest)
+                        b_ms, b_by, _ = _bound(eng, mode, dbvh, N_RAYS, w["ops"])
+                        hq_times[(eng, tname, sname, mode, kind)] = (k_ms, b_ms, b_by)
+            for eng in counters:
+                for mode in ("closest", "any"):
+                    a = hq_times[(eng, tname, sname, mode, "hq")]
+                    b = hq_times[(eng, tname, sname, mode, "std")]
+                    print(f"time {eng:4s} {mode:7s} {sname:7s} {tname}: hq kernel {a[0]:.4f} "
+                          f"ms (bound {a[1]:.5f} ms, {a[2]}), standard {b[0]:.4f} ms (bound "
+                          f"{b[1]:.5f} ms, {b[2]}), hq / standard {a[0] / b[0]:.3f} [{card}]",
+                          flush=True)
+    report["hq_times"] = hq_times
+    add_counts()
+    # an f32 frame on the hq two-level tables vs phase 7's f32 frame
+    cfg32 = cfg.replace(leaf_precision="f32")
+    r_hq = Renderer(dataclasses.replace(scene2, dense=hq["two-level"]), cam, cfg32, device=dev)
+    first_hq, _, warm, _, counts = _frame(r_hq, 0, engines)
+    close = np.isclose(first_hq, first32, rtol=2e-4, atol=2e-5).all(axis=-1)
+    print(f"frame 1280x720 4 bounces AA f32 on the hq two-level tables: {warm * 1e3:.2f} ms "
+          f"(one tick); vs phase 7's f32 frame: {close.mean() * 100:.4f}% pixels allclose "
+          f"({int((~close).sum())} differ) [{card}]", flush=True)
+    _check(counts["trace"][0]["closest"] > 0 and counts["trace"][0]["any"] > 0,
+           "the hq f32 frame did not launch B1")
+    _check(sum(sum(v[1].values()) for v in counts.values()) == 0,
+           "the hq f32 frame called a plain version")
+    _check(bool(np.isfinite(first_hq).all()), "hq f32 image not finite")
+    _check(close.mean() >= HQ_FRAME_CLOSE, "the hq f32 frame vs the f32 frame")
+    add_counts()
+    print(f"15c: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the sort modes on the main path's two-level table
+    t0 = time.perf_counter()
+    dbvh = scene2.dense
+    rep_sort = []
+    for sname, (o, d, tm) in sets.items():
+        *_, tie = _plain_hit(dbvh, o, d, tm)
+        base = {}
+        for mode in trace.SORT_MODES:
+            h1 = trace.sorted_closest_dense(dbvh, o, d, tm, sort_mode=mode)
+            occ1 = trace.sorted_any_dense(dbvh, o, d, tm, sort_mode=mode)
+            h3 = trace_rows.sorted_rows_closest(dbvh, o, d, tm, sort_mode=mode)
+            occ3 = trace_rows.sorted_rows_any(dbvh, o, d, tm, sort_mode=mode)
+            if not base:
+                base = dict(h1=h1, occ1=occ1, h3=h3, occ3=occ3)
+                continue
+            r = dict(b1_bits=sum(int((_bits(a) != _bits(b)).sum())
+                                 for a, b in zip(h1, base["h1"]))
+                     + int((occ1 != base["occ1"]).sum()),
+                     b3_t_bits=int((_bits(h3.t) != _bits(base["h3"].t)).sum()),
+                     b3_prim_outside_ties=int(((h3.prim != base["h3"].prim) & ~tie).sum()),
+                     b3_prim_on_ties=int(((h3.prim != base["h3"].prim) & tie).sum()),
+                     b3_occ=int((occ3 != base["occ3"]).sum()))
+            print(f"  sort {mode} vs octant_major {sname}: {json.dumps(r)}", flush=True)
+            _check(r["b1_bits"] == 0, f"{sname} {mode}: B1 differs under the sort mode")
+            _check(r["b3_t_bits"] == 0 and r["b3_prim_outside_ties"] == 0 and r["b3_occ"] == 0,
+                   f"{sname} {mode}: B3 differs under the sort mode")
+            if sname in SORT_B2_SETS:
+                _compare_bf16(f"sort {mode} {sname}", dbvh, o, d, tm, rep_sort, sort_mode=mode)
+    add_counts()
+    print(f"15d: {time.perf_counter() - t0:.1f} s", flush=True)
+    report["launches"] = phase_counts
+    print(f"classic-BVH path launches (phase total): {json.dumps(phase_counts)}", flush=True)
+    _check(phase_counts["trace"]["closest"] > 0 and phase_counts["trace_bf16"]["closest"] > 0
+           and phase_counts["trace_rows"]["closest"] > 0,
+           "the classic path did not launch B1, B2 and B3")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -2062,7 +2435,8 @@ def main() -> int:
                        skybox=False, one_shadow_ray=True, chunk_pixels=65536)
     _check(cfg.leaf_precision == "bf16", "the default engine is bf16")
     with _Phase("scenes"):
-        scene2, cam, _ = build_bench_scene(flatten="auto", device=dev)
+        scene2, cam, _, handle2 = build_bench_scene(flatten="auto", return_handle=True,
+                                                    device=dev)
         scene1, _, _ = build_bench_scene(flatten=True, device=dev)
         print(f"two-level {scene2.dense.n_nodes} nodes / {scene2.dense.n_groups} "
               f"groups / {scene2.dense.n_instances} instances (stack need "
@@ -2338,6 +2712,13 @@ def main() -> int:
         diff = _diff_path(dev, card, cfg, engines)
     print(f"differentiable path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
 
+    # 15. the classic-BVH path: the lane and packet engines, hq dense
+    # tables, the sort modes
+    with _Phase("classic-BVH path") as ph:
+        classic = _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w,
+                                cam, sets, first_wave, first32)
+    print(f"classic-BVH path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
+
     # 14. result lines
     def err(eng, mode):
         if eng == "bf16":
@@ -2356,6 +2737,10 @@ def main() -> int:
         """The kernel's launches over phase 13 (the differentiable path)."""
         return diff["launches"].get(module, {}).get(mode, 0)
 
+    def classic_launches(module, mode):
+        """The kernel's launches over phase 15 (the classic-BVH path)."""
+        return classic["launches"].get(module, {}).get(mode, 0)
+
     kernels = []
     for eng, launches in (("f32", launches32), ("bf16", launches16),
                           ("rows", launches_rows)):
@@ -2370,7 +2755,8 @@ def main() -> int:
                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": None,
                             "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode),
-                            "diff_path_launches": diff_launches(MODULE_OF[eng], mode)})
+                            "diff_path_launches": diff_launches(MODULE_OF[eng], mode),
+                            "classic_path_launches": classic_launches(MODULE_OF[eng], mode)})
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does, and
                 # the warps that left the shared walk
@@ -2391,7 +2777,9 @@ def main() -> int:
                  "dynamic_path_launches": dyn_launches(name, "scan" if name == "wave_scan"
                                                        else mode),
                  "diff_path_launches": diff_launches(name, "scan" if name == "wave_scan"
-                                                     else mode)}
+                                                     else mode),
+                 "classic_path_launches": classic_launches(name, "scan" if name == "wave_scan"
+                                                           else mode)}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
@@ -2406,6 +2794,7 @@ def main() -> int:
                         "library_ms": None, "port_only": True,
                         "dynamic_path_launches": dyn_launches("wave_level", mode),
                         "diff_path_launches": diff_launches("wave_level", mode),
+                        "classic_path_launches": classic_launches("wave_level", mode),
                         "registers": max((u["registers"] for u in level_use.values()),
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())

@@ -14,8 +14,9 @@ Entry point: ``render.renderer.Renderer(scene, camera, cfg, device=...)`` with
 ``cfg.traversal == "pallas"`` and ``cfg.leaf_precision`` "bf16" (the default;
 ``ops/trace_bf16.py``) or "f32" (``ops/trace.py``), or with
 ``cfg.traversal == "pallas_rows"`` (``ops/trace_rows.py``), or with
-``cfg.traversal == "wave"`` (``ops/traverse_packet.py``, on a scene built
-with its classic BVH, ``legacy_bvh=True``). Every entry point
+``cfg.traversal`` "wave" or "packet" (``ops/traverse_packet.py``) or
+"lane" (``ops/traverse.py``), the three on a scene built with its classic
+BVH, ``legacy_bvh=True``. Every entry point
 that allocates runs on the CUDA card unless the caller passes
 ``device="cpu"`` (``utils/device.py``); without a card the default raises.
 """

@@ -7,14 +7,17 @@ same triangles (it splits leaves the C++ one keeps), so it runs only when
 asked for with ``use_native=False``. Both return CPU tables; the scene
 builders move them to the scene's device.
 
-Not ported: ``build_bvh_hq`` (the SBVH build) and ``optimize_bvh``, which no
-engine of the port reads.
+``build_bvh_hq`` (the spatial-split SBVH build, BuildHQ analogue) runs the
+native SBVH builder (``bvh/csrc/sbvh_builder.cpp``) and raises where it
+cannot run, where the JAX package returns None. ``optimize_bvh`` (tree
+rotations) is numpy, line for line.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from physically_based_ray_tracer_tpu_torch.bvh import native
 from physically_based_ray_tracer_tpu_torch.bvh.types import (BVHArrays,
                                                              LEAF_COUNT_MASK,
                                                              encode_leaf)
@@ -36,7 +39,6 @@ def build_bvh(triangles: np.ndarray, leaf_size: int = 4,
     Returns CPU BVHArrays with tris packed as (v0, e1, e2) rows, padded so
     every leaf can gather a full ``leaf_size`` rows safely."""
     if use_native:
-        from physically_based_ray_tracer_tpu_torch.bvh import native
         out = native.build_bvh_native(
             np.asarray(triangles, np.float32).reshape(-1, 3, 3), leaf_size)
         return BVHArrays.from_numpy(*out, device="cpu")
@@ -205,6 +207,52 @@ def build_bvh(triangles: np.ndarray, leaf_size: int = 4,
         device="cpu")
 
 
+def build_bvh_hq(triangles: np.ndarray, leaf_size: int = 4) -> BVHArrays:
+    """High-quality SBVH build (BuildHQ analogue, tiny_bvh.h:2027-2286):
+    binned object SAH + overlap-gated spatial splits with triangle-slab
+    clipping, in the native builder (bvh/csrc/sbvh_builder.cpp). Spatial
+    splits may reference one triangle from several leaves: prim_index
+    carries the duplicates, which the traversals handle as any other prim
+    (same t). Returns CPU tables."""
+    tri = np.asarray(triangles, dtype=np.float32)
+    if tri.ndim == 2:
+        tri = tri.reshape(-1, 3, 3)
+    nodes_box, children, segments = native.build_sbvh_generic(tri, leaf_size,
+                                                              dense_mode=False)
+
+    nodes_child = np.zeros_like(children)
+    cursor = 0
+    starts = []
+    for seg in segments:
+        starts.append(cursor)
+        cursor += leaf_size
+    INT32_MIN = np.iinfo(np.int32).min
+    for n in range(children.shape[0]):
+        for side in range(2):
+            c = int(children[n, side])
+            if c >= 0:
+                nodes_child[n, side] = c
+            elif c == INT32_MIN:
+                nodes_child[n, side] = encode_leaf(0, 0)
+            else:
+                s = -(c + 1)
+                nodes_child[n, side] = encode_leaf(starts[s], len(segments[s]))
+
+    P = max(cursor, leaf_size)
+    tris_packed = np.zeros((P, 9), dtype=np.float32)
+    prim_index = np.full((P,), -1, dtype=np.int32)
+    v0 = tri[:, 0]
+    for s, seg in enumerate(segments):
+        k = len(seg)
+        o = starts[s]
+        tris_packed[o:o + k, 0:3] = v0[seg]
+        tris_packed[o:o + k, 3:6] = tri[seg, 1] - v0[seg]
+        tris_packed[o:o + k, 6:9] = tri[seg, 2] - v0[seg]
+        prim_index[o:o + k] = seg
+    return BVHArrays.from_numpy(nodes_box, nodes_child, tris_packed, prim_index,
+                                device="cpu")
+
+
 def bvh_depth(bvh: BVHArrays) -> int:
     """Max tree depth (validates the static traversal stack bound)."""
     child = bvh.nodes_child.cpu().numpy()
@@ -218,3 +266,75 @@ def bvh_depth(bvh: BVHArrays) -> int:
             if c >= 0:
                 stack.append((c, d + 1))
     return depth
+
+
+def optimize_bvh(nodes_box: np.ndarray, nodes_child: np.ndarray,
+                 passes: int = 4) -> int:
+    """Greedy tree-rotation optimizer (the role of tinybvh's reinsertion
+    ``Optimize``, Core/tiny_bvh.h:2286/:3078-3181, in its cheap classic
+    form: Kensler-style rotations). For each internal node with an internal
+    child, consider swapping the other child with one of that child's
+    grandchildren; apply the rotation that most reduces the intermediate
+    node's surface area (the only term the global SAH cost changes by).
+    Mutates ``nodes_box``/``nodes_child`` (numpy) in place; traversal
+    results are unchanged (same leaves, different interior grouping).
+    Returns the number of rotations applied.
+    """
+
+    def area(lo, hi):
+        e = np.maximum(hi - lo, 0.0)
+        return 2.0 * (e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+    def slot_box(n, s):
+        return (nodes_box[n, 6 * s:6 * s + 3].copy(),
+                nodes_box[n, 6 * s + 3:6 * s + 6].copy())
+
+    def set_slot(n, s, lo, hi):
+        nodes_box[n, 6 * s:6 * s + 3] = lo
+        nodes_box[n, 6 * s + 3:6 * s + 6] = hi
+
+    applied = 0
+    N = nodes_box.shape[0]
+    for _ in range(passes):
+        changed = 0
+        # bottom-up order so child boxes are final before the parent looks
+        for n in range(N - 1, -1, -1):
+            for s in range(2):       # the internal child whose kids rotate
+                c = int(nodes_child[n, s])
+                if c < 0:
+                    continue
+                o = 1 - s            # the sibling to rotate down
+                sib_lo, sib_hi = slot_box(n, o)
+                g_lo0, g_hi0 = slot_box(c, 0)
+                g_lo1, g_hi1 = slot_box(c, 1)
+                cur = area(*slot_box(n, s))
+                best_gain, best_g = 0.0, -1
+                for g in range(2):
+                    keep_lo = (g_lo1, g_lo0)[g]
+                    keep_hi = (g_hi1, g_hi0)[g]
+                    nlo = np.minimum(sib_lo, keep_lo)
+                    nhi = np.maximum(sib_hi, keep_hi)
+                    gain = cur - area(nlo, nhi)
+                    if gain > best_gain + 1e-7:
+                        best_gain, best_g = gain, g
+                if best_g < 0:
+                    continue
+                g = best_g
+                moved_code = int(nodes_child[c, g])
+                moved_lo, moved_hi = slot_box(c, g)
+                sib_code = int(nodes_child[n, o])
+                # sibling moves down into c's slot g
+                nodes_child[c, g] = sib_code
+                set_slot(c, g, sib_lo, sib_hi)
+                # grandchild moves up into n's slot o
+                nodes_child[n, o] = moved_code
+                set_slot(n, o, moved_lo, moved_hi)
+                # refresh n's box of c
+                klo, khi = slot_box(c, 1 - g)
+                set_slot(n, s, np.minimum(sib_lo, klo),
+                         np.maximum(sib_hi, khi))
+                changed += 1
+        applied += changed
+        if changed == 0:
+            break
+    return applied

@@ -51,7 +51,13 @@ Two derived tables, the port's own, are built from those once per
 ``refresh_tlas`` rewrites the TLAS head of a two-level table after instance
 motion and returns a new ``DenseBVH`` that shares every BLAS-side tensor
 (``groups``, the bf16 tables and both derived tables) with the old one; the
-old table's tensors are never written. The native SBVH core is not ported.
+old table's tensors are never written.
+
+``hq=True`` builds the tree with the native SBVH builder
+(``bvh/native.py``, ``bvh/csrc/sbvh_builder.cpp``): spatial splits, so one
+triangle may sit in several leaf groups (each copy with its own prim id
+row, the same id). Where that builder cannot run the port raises; the JAX
+package falls back silently to the binned core.
 """
 
 from __future__ import annotations
@@ -664,8 +670,52 @@ def shape_dense_leaves(tri: np.ndarray, nodes: np.ndarray,
     return np.stack(out_nodes), new_segments
 
 
-def _build_core_any(tri: np.ndarray, leaf_target: int, shape: bool = False):
-    out = _build_core(tri, leaf_target)
+def _build_core_hq(tri: np.ndarray, leaf_target: int):
+    """SBVH build of the dense-leaf tree via the native spatial-split
+    builder (bvh/csrc/sbvh_builder.cpp, BuildHQ analogue), with
+    _build_core's return contract; raises where the builder cannot run."""
+    from physically_based_ray_tracer_tpu_torch.bvh import native
+
+    nodes_box, children, segments = native.build_sbvh_generic(
+        tri, min(leaf_target, LEAF_W), dense_mode=True)
+    N = nodes_box.shape[0]
+    INT32_MIN = np.iinfo(np.int32).min
+
+    nodes = np.zeros((N, NODE_F), np.float32)
+    nodes[:, 0:12] = nodes_box
+    for n in range(N):
+        for side in range(2):
+            c = int(children[n, side])
+            if c >= 0:
+                nodes[n, 12 + side] = float(c)
+            elif c == INT32_MIN:
+                nodes[n, 12 + side] = ABSENT
+            else:
+                s = -(c + 1)
+                log2c = max(int(np.ceil(np.log2(max(len(segments[s]), 1)))), 0)
+                nodes[n, 12 + side] = _tri_code(s, log2c)
+
+    # depth + root bounds by walking the tree
+    depth = 1
+    stack = [(0, 1)]
+    while stack:
+        n, d = stack.pop()
+        depth = max(depth, d)
+        for side in range(2):
+            c = int(children[n, side])
+            if c >= 0:
+                stack.append((c, d + 1))
+    if int(children[0, 1]) == INT32_MIN:   # single-leaf root
+        root_lo, root_hi = nodes[0, 0:3].copy(), nodes[0, 3:6].copy()
+    else:
+        root_lo = np.minimum(nodes[0, 0:3], nodes[0, 6:9])
+        root_hi = np.maximum(nodes[0, 3:6], nodes[0, 9:12])
+    return nodes, segments, depth, root_lo, root_hi
+
+
+def _build_core_any(tri: np.ndarray, leaf_target: int, hq: bool = False,
+                    shape: bool = False):
+    out = _build_core_hq(tri, leaf_target) if hq else _build_core(tri, leaf_target)
     if shape:
         nodes, segments, depth, lo, hi = out
         nodes, segments = shape_dense_leaves(tri, nodes, segments)
@@ -688,16 +738,17 @@ def _tree_depth(nodes: np.ndarray) -> int:
 
 
 def build_dense(triangles: np.ndarray, leaf_target: int = 64,
-                shape: bool = False) -> tuple[DenseBVH, int]:
+                hq: bool = False, shape: bool = False) -> tuple[DenseBVH, int]:
     """Single-level build over one triangle soup (prim ids global).
 
+    hq=True uses the native SBVH core (spatial splits, BuildHQ analogue).
     shape=True runs the cost-driven leaf merge/split post-pass. Returns
     (DenseBVH on the CPU, depth)."""
     tri = np.asarray(triangles, np.float32)
     if tri.ndim == 2:
         tri = tri.reshape(-1, 3, 3)
     nodes, segments, depth, root_lo, root_hi = _build_core_any(
-        tri, leaf_target, shape)
+        tri, leaf_target, hq, shape)
     groups = _pack_groups(tri, segments)
     gbf, glo, pids_c = _pack_groups_bf(groups)
     dbvh = DenseBVH.from_numpy(nodes.reshape(-1), groups, _NO_INST,
@@ -786,13 +837,15 @@ def _inst_rows(inst_mesh, transforms, blas_root):
 
 
 def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
-                     leaf_target: int = 64, shape: bool = False,
+                     leaf_target: int = 64, hq: bool = False,
+                     shape: bool = False,
                      ) -> tuple[DenseBVH, TLASMeta, int]:
     """Two-level build: one shared BLAS per mesh + TLAS over instances.
 
     mesh_tris: per-mesh (T, 3, 3) object-space triangles; inst_mesh: (I,)
     mesh index per instance; transforms: (I, 4, 4) world-from-object.
-    Returns (DenseBVH, TLASMeta, depth)."""
+    hq=True builds each BLAS with the native SBVH core. Returns (DenseBVH,
+    TLASMeta, depth)."""
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
     I = len(inst_mesh)
@@ -805,7 +858,7 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
         tri = np.asarray(tri, np.float32)
         if tri.ndim == 2:
             tri = tri.reshape(-1, 3, 3)
-        nodes, segments, dep, rlo, rhi = _build_core_any(tri, leaf_target,
+        nodes, segments, dep, rlo, rhi = _build_core_any(tri, leaf_target, hq,
                                                          shape)
         blas_nodes.append(nodes)
         blas_groups.append(_pack_groups(tri, segments))

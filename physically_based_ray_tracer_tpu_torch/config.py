@@ -79,8 +79,9 @@ class BRDFConfig:
 class RenderConfig:
     """Runtime render flags. The port carries ``traversal="pallas"`` with
     both engines (``leaf_precision="bf16"``, the default, and ``"f32"``),
-    ``"pallas_rows"`` and ``"wave"`` (``dense`` "mt" or "woop"), and refuses
-    the values it does not carry; see ``render.integrator.check_supported``."""
+    ``"pallas_rows"``, ``"wave"`` (``dense`` "mt" or "woop"), ``"packet"``
+    and ``"lane"``, and refuses the values it does not carry; see
+    ``render.integrator.check_supported``."""
 
     width: int = 1280
     height: int = 720

@@ -9,9 +9,10 @@ There is no fallback between the two. ``LAUNCHES`` counts kernel launches
 and ``PLAIN_CALLS`` counts calls of the plain version, so that a run can show
 which of them it went through.
 
-``sorted_closest_dense`` / ``sorted_any_dense`` co-sort the rays by an
-octant + Morton key first (coherent warps), as the JAX package's wrappers
-do for its tiles, and scatter the results back to the caller's order.
+``sorted_closest_dense`` / ``sorted_any_dense`` co-sort the rays by a
+Morton key first (coherent warps; ``morton_key``, octant-major unless
+``sort_mode`` names another of its modes), as the JAX package's wrappers do
+for its tiles, and scatter the results back to the caller's order.
 """
 
 from __future__ import annotations
@@ -394,11 +395,23 @@ def intersect_any_dense(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
     return _traverse(dbvh, o, d, t_max, closest=False)
 
 
-def morton_key(o, d, scene_lo, scene_hi, dead=None):
-    """Coherence sort key (uint32 values in int64) for a batch of rays: the
-    3-bit direction octant over a 21-bit origin Morton code (the JAX
-    package's "octant_major" mode, the one its traversal wrappers use);
-    ``dead`` lanes (e.g. tmax == 0) sort to the back."""
+SORT_MODES = ("octant_major", "morton_major", "six_d")
+
+
+def morton_key(o, d, scene_lo, scene_hi, dead=None, mode="octant_major"):
+    """Coherence sort key of a ray batch (uint32 values, held in int64 so
+    that every bit sorts as unsigned). Modes, as the JAX package's:
+
+    * "octant_major": the 3-bit direction octant over a 21-bit origin
+      Morton code (the default; the mode the traversal wrappers use unless
+      told otherwise);
+    * "morton_major": the coarse 12 Morton bits, then the octant, then the
+      9 fine Morton bits;
+    * "six_d": the 15 coarse Morton bits, a 2-bit-per-axis direction code
+      (6 bits), then the 6 fine Morton bits.
+
+    ``dead`` lanes (e.g. tmax == 0) sort to the back: bit 24 (bit 27 in
+    "six_d")."""
     ext = torch.clamp(scene_hi - scene_lo, min=1e-20)
     q = torch.clamp(((o - scene_lo) / ext) * 127.0, 0.0, 127.0).to(torch.int64)
 
@@ -412,15 +425,33 @@ def morton_key(o, d, scene_lo, scene_hi, dead=None):
     octant = ((d[..., 0] > 0).to(torch.int64)
               | ((d[..., 1] > 0).to(torch.int64) << 1)
               | ((d[..., 2] > 0).to(torch.int64) << 2))
-    key = (octant << 21) | morton
+    if mode == "octant_major":
+        key = (octant << 21) | morton
+        dead_shift = 24
+    elif mode == "morton_major":
+        key = ((morton >> 9) << 12) | (octant << 9) | (morton & 0x1FF)
+        dead_shift = 24
+    elif mode == "six_d":
+        qd = torch.clamp((d * 0.5 + 0.5) * 3.0, 0.0, 3.0).to(torch.int64)
+
+        def spread2(x):  # 2 bits, stride 3
+            return (x & 1) | (((x >> 1) & 1) << 3)
+
+        dmorton = (spread2(qd[..., 0]) | (spread2(qd[..., 1]) << 1)
+                   | (spread2(qd[..., 2]) << 2))
+        key = ((morton >> 6) << 12) | (dmorton << 6) | (morton & 0x3F)
+        dead_shift = 27
+    else:
+        raise ValueError(f"unknown morton_order mode: {mode}")
     if dead is not None:
-        key = key | (dead.to(torch.int64) << 24)
+        key = key | (dead.to(torch.int64) << dead_shift)
     return key
 
 
-def _cosort_rays(dbvh: DenseBVH, o, d, t_max):
-    """Stable sort by morton_key; returns (perm, o, d, t_max) in sorted order."""
-    key = morton_key(o, d, dbvh.world_lo, dbvh.world_hi, dead=t_max <= 0.0)
+def _cosort_rays(dbvh: DenseBVH, o, d, t_max, mode="octant_major"):
+    """Stable sort by morton_key (``mode``, dead lanes last); returns (perm,
+    o, d, t_max) in sorted order."""
+    key = morton_key(o, d, dbvh.world_lo, dbvh.world_hi, dead=t_max <= 0.0, mode=mode)
     perm = torch.sort(key, stable=True).indices
     return perm, o[perm], d[perm], t_max[perm]
 
@@ -431,15 +462,17 @@ def _unsort(perm, x):
     return out
 
 
-def sorted_closest_dense(dbvh: DenseBVH, o, d, t_max=None) -> Hit:
-    """Closest hit on octant+Morton-sorted rays (bounce/shadow wavefronts)."""
+def sorted_closest_dense(dbvh: DenseBVH, o, d, t_max=None, *,
+                         sort_mode="octant_major") -> Hit:
+    """Closest hit on octant+Morton-sorted rays (bounce/shadow wavefronts);
+    ``sort_mode`` picks morton_key's mode."""
     if t_max is None:
         t_max = torch.full((o.shape[0],), BVH_FAR, dtype=o.dtype, device=o.device)
-    perm, o_s, d_s, tm_s = _cosort_rays(dbvh, o, d, t_max)
+    perm, o_s, d_s, tm_s = _cosort_rays(dbvh, o, d, t_max, sort_mode)
     hit = intersect_closest_dense(dbvh, o_s, d_s, tm_s)
     return Hit(*(_unsort(perm, x) for x in hit))
 
 
-def sorted_any_dense(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
-    perm, o_s, d_s, tm_s = _cosort_rays(dbvh, o, d, t_max)
+def sorted_any_dense(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major") -> torch.Tensor:
+    perm, o_s, d_s, tm_s = _cosort_rays(dbvh, o, d, t_max, sort_mode)
     return _unsort(perm, intersect_any_dense(dbvh, o_s, d_s, tm_s))

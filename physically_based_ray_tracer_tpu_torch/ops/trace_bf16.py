@@ -778,20 +778,21 @@ def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
 
 
 def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
-                        refine="exact") -> Hit:
-    """Closest hit on octant+Morton-sorted rays, decoded in sorted order
-    (the winner key depends on the lane the kernel saw), scattered back."""
+                        sort_mode="octant_major", refine="exact") -> Hit:
+    """Closest hit on sorted rays (``trace.morton_key``'s ``sort_mode``),
+    decoded in sorted order (the winner key depends on the lane the kernel
+    saw), scattered back."""
     t_max = _far(o) if t_max is None else t_max
-    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     tb, gk, inst = _call_bf16(dbvh, o_s, d_s, tm_s, closest=True)
     hit = _decode(dbvh, tb, gk, inst, refine, o_s, d_s, tm_s)
     return Hit(*(trace._unsort(perm, x) for x in hit))
 
 
-def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
+def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major") -> torch.Tensor:
     """Occlusion on sorted rays; the uncertain lanes are resolved in sorted
     order (no second sort), then the verdict is scattered back."""
-    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     cert, unc = _call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
     occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True)
     return trace._unsort(perm, occ)

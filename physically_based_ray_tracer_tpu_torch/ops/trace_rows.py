@@ -23,7 +23,7 @@ There is no fallback between the two. ``LAUNCHES`` counts kernel launches
 and ``PLAIN_CALLS`` calls of the plain version.
 
 ``sorted_rows_closest`` / ``sorted_rows_any`` co-sort the rays first. The
-JAX package sorts by ``morton_order(..., "octant_major")`` + ``take`` and
+JAX package sorts by ``morton_order(..., mode=sort_mode)`` + ``take`` and
 scatters back with ``argsort``; ``jnp.argsort`` is stable on the same key,
 so ``trace._cosort_rays`` (a stable sort by the same key) gives the same
 permutation.
@@ -229,15 +229,17 @@ def rows_any_dense(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
     return _traverse(dbvh, o, d, t_max, closest=False)
 
 
-def sorted_rows_closest(dbvh: DenseBVH, o, d, t_max=None) -> Hit:
-    """Closest hit on octant+Morton co-sorted rays, scattered back."""
+def sorted_rows_closest(dbvh: DenseBVH, o, d, t_max=None, *,
+                        sort_mode="octant_major") -> Hit:
+    """Closest hit on co-sorted rays (``trace.morton_key``'s ``sort_mode``),
+    scattered back."""
     if t_max is None:
         t_max = torch.full((o.shape[0],), BVH_FAR, dtype=o.dtype, device=o.device)
-    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     hit = rows_closest_dense(dbvh, o_s, d_s, tm_s)
     return Hit(*(trace._unsort(perm, x) for x in hit))
 
 
-def sorted_rows_any(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
-    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max)
+def sorted_rows_any(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major") -> torch.Tensor:
+    perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     return trace._unsort(perm, rows_any_dense(dbvh, o_s, d_s, tm_s))

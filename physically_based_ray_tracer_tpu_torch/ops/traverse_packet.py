@@ -24,13 +24,26 @@ in torch and a host-read loop test per wave. ``WAVES`` (the dict of
 ``ops/wave_level.py``; on the card read through ``collect_waves``) counts
 the waves run per mode, ``LEVELS`` the levels.
 
+The packet engine (``traversal="packet"``, ``intersect_closest_packet`` /
+``intersect_any_packet``) is the JAX module's older loop over the same tiles
+and culling: one step per iteration, either one node or one leaf tested
+densely against all W rays of the tile (``mt_dense``, then the ordered take
+of ``leaf_mt.ordered_take``: the loop over the leaf's slots with a strict
+``<`` keeps the first smallest t). Like the lane engine
+(``ops/traverse.py``) it is torch, runs its loop in ``traverse.run_steps``
+blocks (the test read every ``traverse.CHECK_EVERY`` steps, finished tiles
+dropped, a CUDA graph a block on the card) and emulates the JAX stack's
+overflow (``traverse.stack_step``); ``PACKET_STEPS`` counts its steps per
+mode. Its miss record is its own: t starts at BVH_FAR whatever ``t_max``
+is, a hit counts only below ``t_max``, and a miss gives t = BVH_FAR,
+u = v = 0, prim = inst = -1.
+
 Sorting rays by direction octant + origin Morton code (``sorted_closest``,
-``sorted_any``) makes tiles coherent. The JAX module's leaf math
+``sorted_any``) makes tiles coherent; ``morton_order`` takes
+``morton_key``'s three modes (``ops/trace.py``). The JAX module's leaf math
 (``mt_dense``, ``_leaf_columns``) lives beside kernel B4 in
 ``ops/leaf_mt.py`` (``_leaf_decode`` is ``bvh/types.py::decode_leaf``), its
-``_interval_slab`` beside the scan kernel in
-``ops/wave_scan.py``. Not ported: the packet engine
-(``intersect_*_packet``) and ``morton_key``'s other modes.
+``_interval_slab`` beside the scan kernel in ``ops/wave_scan.py``.
 """
 
 from __future__ import annotations
@@ -39,23 +52,27 @@ import torch
 
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
-from physically_based_ray_tracer_tpu_torch.ops import wave_level, wave_scan
+from physically_based_ray_tracer_tpu_torch.ops import traverse, wave_level, wave_scan
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
 from physically_based_ray_tracer_tpu_torch.ops.leaf_mt import (_gather_rows,
                                                                leaf_columns,
+                                                               mt_dense,
                                                                ordered_take)
 from physically_based_ray_tracer_tpu_torch.ops.trace import morton_key
 from physically_based_ray_tracer_tpu_torch.ops.wave_level import WAVES, _tile_update
-from physically_based_ray_tracer_tpu_torch.ops.wave_scan import BIG, DONE
+from physically_based_ray_tracer_tpu_torch.ops.wave_scan import BIG, DONE, _interval_slab
 
 LEVELS = {"closest": 0, "any": 0}
+PACKET_STEPS = {"closest": 0, "any": 0}
 
 
 def reset_counts() -> None:
-    """Zeroes ``WAVES``, ``LEVELS`` and ``ops/wave_level.py``'s counts."""
+    """Zeroes ``WAVES``, ``LEVELS``, ``PACKET_STEPS`` and
+    ``ops/wave_level.py``'s counts."""
     wave_level.reset_counts()
-    for k in LEVELS:
-        LEVELS[k] = 0
+    for d in (LEVELS, PACKET_STEPS):
+        for k in d:
+            d[k] = 0
 
 
 def collect_waves() -> dict:
@@ -102,6 +119,126 @@ def _pad_tiles(o, d, extra, tile):
              for x in extra]
     extra = [x.reshape((n_tiles, tile) + x.shape[1:]) for x in extra]
     return o.contiguous(), d.contiguous(), extra, b, n_tiles
+
+
+def _packet_tiles(bvh, o, d, t_max, tile, stack_depth):
+    """The packet engine's padded tiles and tile state (one row per tile in
+    each tensor), and the rays' count."""
+    traverse.check_rays(bvh, o, d, t_max, "packet")
+    o_t, d_t, (tmax_t,), b, T = _pad_tiles(o, d, [t_max], tile)
+    cur, sp, stack = traverse.stack_state(T, stack_depth, o.device)
+    o_lo, o_hi, rd_lo, rd_hi = _tile_bounds(o_t, d_t)
+    return dict(o_t=o_t, d_t=d_t, tmax=tmax_t, o_lo=o_lo, o_hi=o_hi, rd_lo=rd_lo,
+                rd_hi=rd_hi, cur=cur, sp=sp, stack=stack,
+                active=torch.ones((T,), dtype=torch.bool, device=o.device)), b
+
+
+def _tile_children(bvh, s, t_tile):
+    """A node step of the tiles: (is_leaf, children (T, 2), entry (T, 2),
+    may-hit (T, 2)) of their nodes (node 0 for a leaf or a finished tile),
+    empty leaf slots rejected."""
+    cur = s["cur"]
+    is_leaf = cur < 0
+    node_idx = torch.where(is_leaf | ~s["active"], 0, cur)
+    box = _gather_rows(bvh.nodes_box, node_idx)               # (T, 12)
+    child = _gather_rows(bvh.nodes_child, node_idx)           # (T, 2)
+    bounds = (s["o_lo"], s["o_hi"], s["rd_lo"], s["rd_hi"])
+    d0, h0 = _interval_slab(box[:, 0:6], *bounds, t_tile)
+    d1, h1 = _interval_slab(box[:, 6:12], *bounds, t_tile)
+    hit = torch.stack([h0, h1], dim=1) & ~traverse.empty_slot(child)
+    return is_leaf, child, torch.stack([d0, d1], dim=1), hit
+
+
+def intersect_closest_packet(bvh: BVHArrays, o, d, t_max=None, *,
+                             tile: int = 256, stack_depth: int = 48,
+                             leaf_size: int = 4) -> Hit:
+    """Closest-hit packet traversal. o, d: (B, 3); returns per-ray Hit
+    (prim in the scene's triangle order; the miss record of the module
+    docstring)."""
+    if t_max is None:
+        t_max = torch.full((o.shape[0],), BVH_FAR, dtype=o.dtype, device=o.device)
+    st, b = _packet_tiles(bvh, o, d, t_max, tile, stack_depth)
+    T, W = st["tmax"].shape
+    dev = o.device
+    # padded lanes have t_max 0: they never hit and never widen the pruning
+    st.update(t=torch.full((T, W), BVH_FAR, dtype=o.dtype, device=dev),
+              u=torch.zeros((T, W), dtype=o.dtype, device=dev),
+              v=torch.zeros((T, W), dtype=o.dtype, device=dev),
+              prim=torch.full((T, W), -1, dtype=torch.int32, device=dev))
+    kk = torch.arange(leaf_size, dtype=torch.int32, device=dev)
+
+    def body(s):
+        cur, active = s["cur"], s["active"]
+        clip = torch.minimum(s["t"], s["tmax"])
+        t_tile = torch.amax(clip, dim=1)                          # (T,)
+        is_leaf, child, dist, hit = _tile_children(bvh, s, t_tile)
+        swap = dist[:, 1] < dist[:, 0]
+        c0, c1 = child[:, 0], child[:, 1]
+        near = torch.where(swap, c1, c0)
+        far = torch.where(swap, c0, c1)
+        near_hit = torch.where(swap, hit[:, 1], hit[:, 0])
+        far_hit = torch.where(swap, hit[:, 0], hit[:, 1])
+        internal_next = torch.where(near_hit, near,
+                                    torch.where(far_hit, far, torch.full_like(far, DONE)))
+        push = near_hit & far_hit & active & ~is_leaf
+        # leaf: dense W x leaf_size Möller-Trumbore, then the ordered take
+        _, count, slots, rows = traverse.leaf_slots(bvh, cur, is_leaf, leaf_size)
+        kt, ku, kv, khit = mt_dense(s["o_t"], s["d_t"], rows, clip)
+        valid = ((kk[None, :] < count[:, None]) & (is_leaf & active)[:, None])[:, None, :] & khit
+        s["t"], s["u"], s["v"], s["prim"] = ordered_take(
+            kt, ku, kv, valid, slots, s["t"], s["u"], s["v"], s["prim"], s["tmax"])
+        nxt = torch.where(is_leaf, torch.full_like(cur, DONE), internal_next)
+        nxt, s["sp"], exhausted = traverse.stack_step(s["stack"], s["sp"], nxt, push, far,
+                                                      active)
+        s["active"] = active & ~exhausted
+        s["cur"] = torch.where(s["active"], nxt, torch.full_like(nxt, DONE))
+
+    traverse.run_steps(body, st, ("t", "u", "v", "prim"), "closest", PACKET_STEPS)
+    take = lambda x: x.reshape(-1)[:b]
+    t, prim_slot = take(st["t"]), take(st["prim"])
+    found = (prim_slot >= 0) & (t < t_max)
+    prim = torch.where(found, _gather_rows(bvh.prim_index, prim_slot.clamp(min=0)), -1)
+    zero = torch.zeros_like(t)
+    return Hit(t=torch.where(found, t, torch.full_like(t, BVH_FAR)),
+               u=torch.where(found, take(st["u"]), zero),
+               v=torch.where(found, take(st["v"]), zero),
+               prim=prim.to(torch.int32),
+               inst=torch.where(found, 0, -1).to(torch.int32))
+
+
+def intersect_any_packet(bvh: BVHArrays, o, d, t_max, *,
+                         tile: int = 256, stack_depth: int = 48,
+                         leaf_size: int = 4) -> torch.Tensor:
+    """Occlusion packet query: True where a hit exists with t in (0, t_max).
+    A tile retires once each of its rays is occluded or has t_max <= 0."""
+    st, b = _packet_tiles(bvh, o, d, t_max, tile, stack_depth)
+    st["occ"] = torch.zeros(st["tmax"].shape, dtype=torch.bool, device=o.device)
+    kk = torch.arange(leaf_size, dtype=torch.int32, device=o.device)
+
+    def body(s):
+        cur, active, tmax = s["cur"], s["active"], s["tmax"]
+        pending = ~s["occ"] & (tmax > 0.0)
+        t_tile = torch.amax(torch.where(pending, tmax, 0.0), dim=1)
+        is_leaf, child, _, hit = _tile_children(bvh, s, t_tile)
+        h0, h1 = hit[:, 0], hit[:, 1]
+        c0, c1 = child[:, 0], child[:, 1]
+        internal_next = torch.where(h0, c0, torch.where(h1, c1, torch.full_like(c1, DONE)))
+        push = h0 & h1 & active & ~is_leaf
+
+        _, count, _, rows = traverse.leaf_slots(bvh, cur, is_leaf, leaf_size)
+        khit = mt_dense(s["o_t"], s["d_t"], rows, tmax)[3]
+        valid = ((kk[None, :] < count[:, None]) & (is_leaf & active)[:, None])[:, None, :] & khit
+        s["occ"] = s["occ"] | torch.any(valid, dim=2)
+
+        nxt = torch.where(is_leaf, torch.full_like(cur, DONE), internal_next)
+        nxt, s["sp"], exhausted = traverse.stack_step(s["stack"], s["sp"], nxt, push, c1,
+                                                      active)
+        all_occluded = torch.all(s["occ"] | (tmax <= 0.0), dim=1)
+        s["active"] = active & ~exhausted & ~all_occluded
+        s["cur"] = torch.where(s["active"], nxt, torch.full_like(nxt, DONE))
+
+    traverse.run_steps(body, st, ("occ",), "any", PACKET_STEPS)
+    return st["occ"].reshape(-1)[:b]
 
 
 def _w1_from_rows(rows_w, K_tot):
@@ -270,19 +407,6 @@ def _wave_engine(bvh, o, d, t_max, *, closest, tile, stack_depth, leaf_size,
     return take(st["occ"])
 
 
-def _check_inputs(bvh: BVHArrays, o, d, t_max):
-    if bvh is None:
-        raise ValueError("the wave engine needs the scene's classic BVH "
-                         "(SceneData.bvh; build with legacy_bvh=True)")
-    B = o.shape[0]
-    for name, x, shape in (("o", o, (B, 3)), ("d", d, (B, 3)), ("t_max", t_max, (B,))):
-        if x.device != bvh.tris.device:
-            raise ValueError(f"{name} is on {x.device}, the BVH on {bvh.tris.device}")
-        if x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape}, got {x.dtype} "
-                             f"{tuple(x.shape)}")
-
-
 def intersect_closest_wave(bvh: BVHArrays, o, d, t_max=None, *,
                            tile: int = 128, stack_depth: int = 48,
                            leaf_size: int = 16, node_steps: int = 8,
@@ -292,7 +416,7 @@ def intersect_closest_wave(bvh: BVHArrays, o, d, t_max=None, *,
     prim in the scene's triangle order and inst 0 (-1 on a miss)."""
     if t_max is None:
         t_max = torch.full((o.shape[0],), BVH_FAR, dtype=o.dtype, device=o.device)
-    _check_inputs(bvh, o, d, t_max)
+    traverse.check_rays(bvh, o, d, t_max, "wave")
     return _wave_engine(bvh, o, d, t_max, closest=True, tile=tile,
                         stack_depth=stack_depth, leaf_size=leaf_size,
                         node_steps=node_steps, leaf_cap=leaf_cap, dense=dense,
@@ -305,17 +429,18 @@ def intersect_any_wave(bvh: BVHArrays, o, d, t_max, *,
                        leaf_cap: int = 4, dense: str = "mt",
                        shrink: int = 8) -> torch.Tensor:
     """Wave occlusion query (see intersect_closest_wave)."""
-    _check_inputs(bvh, o, d, t_max)
+    traverse.check_rays(bvh, o, d, t_max, "wave")
     return _wave_engine(bvh, o, d, t_max, closest=False, tile=tile,
                         stack_depth=stack_depth, leaf_size=leaf_size,
                         node_steps=node_steps, leaf_cap=leaf_cap, dense=dense,
                         shrink=shrink)
 
 
-def morton_order(o, d, scene_lo, scene_hi):
-    """Coherence permutation: the stable argsort of the octant-major
-    ``morton_key`` (the JAX package's default mode)."""
-    return torch.sort(morton_key(o, d, scene_lo, scene_hi), stable=True).indices
+def morton_order(o, d, scene_lo, scene_hi, dead=None, mode="octant_major"):
+    """Coherence permutation: the stable argsort of ``morton_key`` (its
+    ``dead`` lanes last, its ``mode``)."""
+    return torch.sort(morton_key(o, d, scene_lo, scene_hi, dead=dead, mode=mode),
+                      stable=True).indices
 
 
 def _scene_bounds(bvh: BVHArrays):

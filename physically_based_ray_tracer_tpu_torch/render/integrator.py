@@ -25,21 +25,24 @@ package's, kept for parity: it assumes nonnegative light colours, and a
 light with a negative colour component renders as the JAX package renders
 it.
 
-Four engines are ported, dispatched as the JAX package dispatches them:
+Six engines are ported, dispatched as the JAX package dispatches them:
 ``traversal="pallas"`` with the bf16 engine (``leaf_precision="bf16"``, the
 ``RenderConfig`` default; ``ops/trace_bf16.py``, kernel B2, with its
 uncertain occlusion lanes resolved by B1) or the exact f32 engine
 (``leaf_precision="f32"``; ``ops/trace.py``, kernel B1);
 ``traversal="pallas_rows"``, the row-parallel exact engine
 (``ops/trace_rows.py``, kernel B3: B1's function, one traversal per warp);
-and ``traversal="wave"``, the wave engine over the scene's classic BVH
+``traversal="wave"``, the wave engine over the scene's classic BVH
 (``ops/traverse_packet.py``: the node scan ``csrc/wave_scan.cu`` and, for
-``dense="mt"``, kernel B4 ``csrc/leaf_mt.cu``). ``leaf_precision`` and
-``refine`` do not apply to the last two. As in the JAX
-package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups take the f32
-engine even when bf16 is asked for; the launch counters show which engine
-ran. Options the port does not carry raise ``NotImplementedError`` naming
-the option; see ``check_supported``.
+``dense="mt"``, kernel B4 ``csrc/leaf_mt.cu``); and the two torch engines
+over the classic BVH, ``traversal="packet"`` (``ops/traverse_packet.py``,
+one shared stack per tile, on sorted rays where the JAX package sorts) and
+``traversal="lane"`` (``ops/traverse.py``, one stack per ray, never
+sorted). ``leaf_precision`` and ``refine`` do not apply to the last four.
+As in the JAX package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups
+take the f32 engine even when bf16 is asked for; the launch counters show
+which engine ran. Options the port does not carry raise
+``NotImplementedError`` naming the option; see ``check_supported``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from physically_based_ray_tracer_tpu_torch.config import (
     BVH_FAR, EPSILON, P_DIRECTIONAL, P_POINT, P_SPOT, RenderConfig, RenderMode)
 from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
 from physically_based_ray_tracer_tpu_torch.ops import (trace, trace_bf16, trace_rows,
-                                                      traverse_packet)
+                                                      traverse, traverse_packet)
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
 from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays, sample_skybox
@@ -65,23 +68,28 @@ from physically_based_ray_tracer_tpu_torch.utils.math import (dot, reflect,
 from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
 
 
+CLASSIC_ENGINES = ("wave", "packet", "lane")
+
+
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for every option this port does not carry:
-    the "packet" and "lane" engines, a leaf precision other than bf16 /
-    f32, a wave leaf test other than mt / woop, the wave engine on a scene
-    without a classic BVH, and cross-device ray resharding."""
-    if cfg.traversal not in ("pallas", "pallas_rows", "wave"):
+    a traversal name the JAX package does not name (it traces those with
+    the lane engine; the port refuses them), a leaf precision other than
+    bf16 / f32, a wave leaf test other than mt / woop, an engine of the
+    classic BVH (wave, packet, lane) on a scene without one, and
+    cross-device ray resharding."""
+    if cfg.traversal not in ("pallas", "pallas_rows") + CLASSIC_ENGINES:
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port carries the dense-BVH "
-            "engines (traversal='pallas' and 'pallas_rows') and the wave engine "
-            "(traversal='wave')")
+            "engines (traversal='pallas' and 'pallas_rows') and the engines of "
+            "the classic BVH (traversal='wave', 'packet' and 'lane')")
     if cfg.traversal == "wave" and cfg.dense not in ("mt", "woop"):
         raise NotImplementedError(f"dense={cfg.dense!r}: the wave engine's leaf "
                                   "test is 'mt' or 'woop'")
-    if cfg.traversal == "wave" and scene is not None and scene.bvh is None:
+    if cfg.traversal in CLASSIC_ENGINES and scene is not None and scene.bvh is None:
         raise NotImplementedError(
-            "traversal='wave' on a scene without a classic BVH (SceneData.bvh "
-            "is None): build it with legacy_bvh=True")
+            f"traversal={cfg.traversal!r} on a scene without a classic BVH "
+            "(SceneData.bvh is None): build it with legacy_bvh=True")
     if cfg.leaf_precision not in ("bf16", "f32"):
         raise NotImplementedError(
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
@@ -116,12 +124,17 @@ def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,
     if cfg.traversal == "pallas_rows":
         fn = trace_rows.sorted_rows_closest if sort else trace_rows.rows_closest_dense
         return fn(scene.dense, o, d, t_max)
-    if cfg.traversal == "wave":
+    if cfg.traversal in ("wave", "packet"):
         tp = traverse_packet
+        fn, kw = ((tp.intersect_closest_wave, _wave_kw(cfg)) if cfg.traversal == "wave"
+                  else (tp.intersect_closest_packet, _packet_kw(cfg)))
         if sort:
-            return tp.sorted_closest(tp.intersect_closest_wave, scene.bvh, o, d, t_max,
-                                     **_wave_kw(cfg))
-        return tp.intersect_closest_wave(scene.bvh, o, d, t_max, **_wave_kw(cfg))
+            return tp.sorted_closest(fn, scene.bvh, o, d, t_max, **kw)
+        return fn(scene.bvh, o, d, t_max, **kw)
+    if cfg.traversal == "lane":
+        return traverse.intersect_closest(scene.bvh, o, d, t_max,
+                                          stack_depth=cfg.max_stack_depth,
+                                          leaf_size=cfg.leaf_size)
     if _use_bf16(cfg, scene.dense):
         fn = trace_bf16.sorted_closest_bf16 if sort \
             else trace_bf16.intersect_closest_bf16
@@ -134,21 +147,30 @@ def _detached(o, d, t_max):
     return o.detach(), d.detach(), None if t_max is None else t_max.detach()
 
 
-def _wave_kw(cfg: RenderConfig) -> dict:
+def _packet_kw(cfg: RenderConfig) -> dict:
     return dict(tile=cfg.packet_tile, stack_depth=cfg.max_stack_depth,
-                leaf_size=cfg.leaf_size, dense=cfg.dense, shrink=cfg.wave_shrink)
+                leaf_size=cfg.leaf_size)
+
+
+def _wave_kw(cfg: RenderConfig) -> dict:
+    return dict(_packet_kw(cfg), dense=cfg.dense, shrink=cfg.wave_shrink)
 
 
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
     """Occlusion of each ray; the rays and t_max are detached, as in _closest."""
     o, d, t_max = _detached(o, d, t_max)
     sort = sort and cfg.sort_rays
-    if cfg.traversal == "wave":
+    if cfg.traversal in ("wave", "packet"):
         tp = traverse_packet
+        fn, kw = ((tp.intersect_any_wave, _wave_kw(cfg)) if cfg.traversal == "wave"
+                  else (tp.intersect_any_packet, _packet_kw(cfg)))
         if sort:
-            return tp.sorted_any(tp.intersect_any_wave, scene.bvh, o, d, t_max,
-                                 **_wave_kw(cfg))
-        return tp.intersect_any_wave(scene.bvh, o, d, t_max, **_wave_kw(cfg))
+            return tp.sorted_any(fn, scene.bvh, o, d, t_max, **kw)
+        return fn(scene.bvh, o, d, t_max, **kw)
+    if cfg.traversal == "lane":
+        return traverse.intersect_any(scene.bvh, o, d, t_max,
+                                      stack_depth=cfg.max_stack_depth,
+                                      leaf_size=cfg.leaf_size)
     if cfg.traversal == "pallas_rows":
         fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
     elif _use_bf16(cfg, scene.dense):

@@ -93,15 +93,16 @@ class Renderer:
     """Owns the film on ``device`` (the CUDA card unless the caller passes
     ``device="cpu"``) and renders frames of one scene.
 
-    Four traversal engines run: ``traversal="pallas"`` with the
+    Six traversal engines run: ``traversal="pallas"`` with the
     ``RenderConfig`` default ``leaf_precision="bf16"`` (kernel B2) or the
     exact ``"f32"`` one (kernel B1), the row-parallel exact engine
-    ``traversal="pallas_rows"`` (kernel B3), and the wave engine
-    ``traversal="wave"`` over the scene's classic BVH (the node-scan kernel
-    and kernel B4), which needs a scene built with ``legacy_bvh=True``.
-    Options the port does not carry, and a wave config on a scene without a
-    classic BVH, are refused here at construction, before any device work
-    (see ``integrator.check_supported``).
+    ``traversal="pallas_rows"`` (kernel B3), and three engines over the
+    scene's classic BVH, which need a scene built with ``legacy_bvh=True``:
+    the wave engine ``traversal="wave"`` (the fused level kernel) and the
+    torch engines ``"packet"`` and ``"lane"``. Options the port does not
+    carry, and a classic-BVH engine on a scene without that BVH, are refused
+    here at construction, before any device work (see
+    ``integrator.check_supported``).
 
     ``key`` is the integer seed the JAX package would pass as
     ``jax.random.key(key)``; images are pixel-for-pixel comparable.

@@ -101,8 +101,8 @@ def test_config_mirrors_jax():
 
 @pytest.mark.parametrize("kw,name", [
     (dict(leaf_precision="fp16"), "leaf_precision"),
-    (dict(traversal="packet"), "traversal"),
-    (dict(traversal="lane"), "traversal"),
+    (dict(traversal="bvh8"), "traversal"),
+    (dict(traversal="Lane"), "traversal"),
     (dict(reshard_axis="x", reshard_ndev=2), "reshard_axis"),
 ])
 def test_unported_options_raise(kw, name):

@@ -533,9 +533,10 @@ def test_renderer_wave_matches_jax(wave_scene):
 
 
 def test_check_supported_wave(wave_scene):
-    """"wave" is carried with dense "mt" and "woop"; "packet" and "lane" are
-    refused, and so is "wave" on a scene without a classic BVH, before any
-    device work (also with the default device, the card)."""
+    """"wave" is carried with dense "mt" and "woop"; a traversal name the
+    JAX package does not name is refused (the JAX package traces it with the
+    lane engine), and so is "wave" on a scene without a classic BVH, before
+    any device work (also with the default device, the card)."""
     js, ts, _, jcam = wave_scene
     cam = port_camera(jcam)
     cfg = port_config(WAVE_CFG)
@@ -543,7 +544,7 @@ def test_check_supported_wave(wave_scene):
         check_supported(cfg.replace(dense=dense), ts)
     with pytest.raises(NotImplementedError, match="dense"):
         check_supported(cfg.replace(dense="fp8"), ts)
-    for traversal in ("packet", "lane"):
+    for traversal in ("bvh8", "Lane"):
         with pytest.raises(NotImplementedError, match="traversal"):
             check_supported(cfg.replace(traversal=traversal), ts)
     bare = dataclasses.replace(ts, bvh=None)
