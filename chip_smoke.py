@@ -235,11 +235,13 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    op (the lane engine on the three sets, the packet engine on the primary
    set's first PACKET_EAGER_RAYS rays), no overflow push (stack depth 48);
    each call's ms and steps printed; (b) the bench frame with
-   ``traversal="lane"`` and ``"packet"``, one tick each (phase 10d's key;
-   the packet frame takes ~3.5 minutes): >= 99.99% of pixels allclose
-   (rtol 2e-4, atol 2e-5) to phase 10d's wave frame, no kernel launched
-   (B1-B4, the scan, the fused level), no plain version called, a finite
-   image; wall ms, steps and peak memory printed; (c) hq dense tables
+   ``traversal="lane"``, one tick (phase 10d's key), and with
+   ``"packet"`` over every PACKET_STRIDE-th (4th) pixel of the Morton order
+   (``frame_fn`` on 230,400 pixels, ~55 s where the whole frame took ~3.5
+   minutes): >= 99.99% of pixels allclose (rtol 2e-4, atol 2e-5) to the
+   same pixels of phase 10d's wave frame, no kernel launched (B1-B4, the
+   scan, the fused level), no plain version called, a finite image; wall
+   ms, steps and peak memory printed; (c) hq dense tables
    (``build_dense(hq=True)`` of the flattened bench triangles,
    ``build_dense_tlas(hq=True)`` of the two-level scene, the scene's leaf
    target and shaping): host build ms beside the binned builds' (which
@@ -257,10 +259,51 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    under each mode besides the default on SORT_B2_SETS. Prints each
    kernel's launches over the phase (B1, B2 and B3 must launch) and the
    phase's seconds;
+16. the parallel path (after 15; ``parallel/``, the sharded train step,
+   ``utils/profiling.py``), on the bench frame (bf16 unless named): (a) a
+   one-rank NCCL mesh in this process: NCCL's all_reduce and all_gather on
+   CUDA tensors; ``sharded_frame``'s frame bit-equal to the unsharded
+   frame (same key and sample); ``make_sharded_train_step``'s step on
+   phase 13b's 1,024 pixels of phase 13a's gradient problem: loss and
+   parameters bit-equal to ``make_train_step``'s; (b-d) PAR_RANKS (2) gloo
+   ranks spawned on the card (``spawn_ranks``; they share it, so each
+   collective stages through host memory; the kernels were built in phase
+   1 and are only loaded there; a rank that fails fails the phase): (b) the
+   sharded frame, bf16 and f32, and both again with ``reshard_block=4096``,
+   stitched by ``gather_rows``: the f32 frame bit-equal to the unsharded
+   one and the resharded f32 frame within atol 2e-6, rtol 1e-5 of it; the
+   bf16 frame bit-equal to each rank's block rendered here (B2 breaks
+   exact bf16 ties by the ray's lane in its batch, as the JAX kernel does,
+   so the bf16 frame follows the batches: its difference from the
+   unsharded frame is printed) and the resharded bf16 frame: at most
+   PAR_BF16_RESHARD_DIFFER (0.05%) of its pixels differ from the
+   unresharded frame, and within the bf16 contract of phase 7 (MSE < 2e-3,
+   < 3% of pixels off by > 0.05);
+   rays donated per bounce printed (some must move); (c)
+   ``partition_instances`` of the bench scene's 10 instances over the 2
+   ranks (5 each), ``partitioned_closest`` / ``partitioned_any`` on the
+   three ray sets: found and occlusion equal to the unpartitioned
+   two-level B1 trace, prims equal outside the plain version's t-ties, t
+   within 1e-6 relative, the same result on both ranks; each rank's table
+   bytes against the union's printed (not larger); (d)
+   ``make_sharded_train_step`` on PAR_TRAIN_PIXELS (65,536) pixels drawn
+   over the frame of phase 13a's gradient problem: the averaged gradient
+   within PAR_GRAD_RTOL (1e-4) of one rank's gradient on the same pixels
+   (the mean of the two blocks' gradients, each block traced here as its
+   own batch, as in (b)), relative per group, its gap to the gradient of
+   all the pixels as one batch printed, and both ranks' parameters
+   bit-equal after the step; (e) ``measure_work_invariance`` of the bench frame at divisors 1,
+   2 and 4 (3 timed frames each), and ``utils/profiling.trace`` of one
+   frame under ``annotate("frame")``: the exported Chrome trace names the
+   ``frame`` span and B2's kernel function. Prints each sub-phase's
+   seconds, each kernel's launches over the phase summed over the ranks
+   (B1 and B2 must launch) and the phase's seconds;
 14. prints the kernels' JSON line (each kernel's launches over phase 12
    under ``dynamic_path_launches``, over phase 13 under
-   ``diff_path_launches``, over phase 15 under ``classic_path_launches``),
-   the card line and, last, ``{"ok": true, "device": {...}}``.
+   ``diff_path_launches``, over phase 15 under ``classic_path_launches``,
+   over phase 16, summed over the ranks, under
+   ``parallel_path_launches``), the card line and, last, ``{"ok": true,
+   "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without that line.
@@ -378,11 +421,30 @@ SHARED_TABLES = ("groups", "groups_bf", "glo", "pids_c", "prim_base", "leaf_rec"
 # op-by-op steps (each op-by-op step costs ~100 launches); the hq f32
 # frame's share of pixels allclose to the f32 frame (only t-tie forks may
 # differ); the sets on which B2 is held to its plain version under each
-# sort mode besides the default (phase 3 covers octant_major)
+# sort mode besides the default (phase 3 covers octant_major); the packet
+# frame renders every PACKET_STRIDE-th pixel of the Morton order
 CLASSIC_ENGINES = ("lane", "packet")
 PACKET_EAGER_RAYS = 4096
 HQ_FRAME_CLOSE = 0.999
 SORT_B2_SETS = ("bounce",)
+PACKET_STRIDE = 4
+# the parallel path (phase 16): gloo ranks spawned on the card (they share
+# it); the ring donation block; the pixels (drawn over the frame, seed 2) of
+# the two-rank train step and its gate, the averaged gradient within 1e-4 of
+# one rank's on the same pixels, relative per group; the resharded frame's
+# tolerance (tests/test_resharding.py's); the most pixels of the resharded
+# bf16 frame that may differ from the unresharded one, as a share of the
+# frame (donation moves rays into the neighbour's batch, where B2 may break
+# an exact bf16 tie the other way: the card showed 116 of 921,600 pixels,
+# 0.013%, and 171 between two chunkings of the unsharded frame);
+# measure_work_invariance's divisors
+PAR_RANKS = 2
+PAR_RESHARD_BLOCK = 4096
+PAR_TRAIN_PIXELS = 65536
+PAR_GRAD_RTOL = 1e-4
+PAR_RESHARD_TOL = dict(atol=2e-6, rtol=1e-5)
+PAR_BF16_RESHARD_DIFFER = 5e-4
+PAR_DIVISORS = (1, 2, 4)
 
 
 def _smi() -> str:
@@ -2146,7 +2208,9 @@ def _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w, cam
     from physically_based_ray_tracer_tpu_torch.bvh.dense import build_dense, build_dense_tlas
     from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16, trace_rows, traverse
     from physically_based_ray_tracer_tpu_torch.ops import traverse_packet as tp
-    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.render.film import FilmState
+    from physically_based_ray_tracer_tpu_torch.render.renderer import (Renderer, frame_fn,
+                                                                       morton_pixel_order)
     from physically_based_ray_tracer_tpu_torch.scene.scene import _bake_world
 
     report = {}
@@ -2167,23 +2231,44 @@ def _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w, cam
     add_counts()
     print(f"15a: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # (b) the bench frame with each engine, one tick, phase 10d's key
+    # (b) the bench frame with each engine, one tick, phase 10d's key; the
+    # packet engine over every PACKET_STRIDE-th pixel of the Morton order,
+    # held to the same pixels of the wave frame (a lane's result depends on
+    # its ray and pixel id alone)
+    order = morton_pixel_order(cfg.width, cfg.height)
     for engine in CLASSIC_ENGINES:
         t0 = time.perf_counter()
-        r = Renderer(scene_w, cam, cfg.replace(traversal=engine), device=dev)
+        ecfg = cfg.replace(traversal=engine)
         steps = traverse.STEPS if engine == "lane" else tp.PACKET_STEPS
         traverse.reset_counts()
         tp.reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        first, _, warm, _, counts = _frame(r, 0, engines)
+        if engine == "packet":
+            ids = order[::PACKET_STRIDE]
+            for c in engines:
+                c.reset_counts()
+            t1 = time.perf_counter()
+            _, avg = frame_fn(scene_w, cam, FilmState.zeros(ids.shape[0], device=dev), 0, 0,
+                              torch.from_numpy(ids).to(dev), cfg=ecfg)
+            first = np.clip(avg.cpu().numpy(), 0.0, 1.0)
+            warm = time.perf_counter() - t1
+            counts = {c.__name__.rsplit(".", 1)[1]: (dict(c.LAUNCHES), dict(c.PLAIN_CALLS))
+                      for c in engines}
+            ref = first_wave.reshape(-1, 3)[ids]
+            what = f"{ids.shape[0]} pixels (every {PACKET_STRIDE}th of the Morton order)"
+        else:
+            first, _, warm, _, counts = _frame(Renderer(scene_w, cam, ecfg, device=dev), 0,
+                                               engines)
+            ref = first_wave
+            what = "one tick"
         report[f"{engine}_frame_ms"] = warm * 1e3
-        close = np.isclose(first, first_wave, rtol=2e-4, atol=2e-5).all(axis=-1)
-        print(f"frame 1280x720 4 bounces AA {engine}: {warm * 1e3:.2f} ms (one tick), steps "
+        close = np.isclose(first, ref, rtol=2e-4, atol=2e-5).all(axis=-1)
+        print(f"frame 1280x720 4 bounces AA {engine}: {warm * 1e3:.2f} ms ({what}), steps "
               f"{dict(steps)}, peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB [{card}]", flush=True)
-        print(f"  vs the wave frame (same key): {close.mean() * 100:.4f}% pixels allclose "
-              f"({int((~close).sum())} differ), max abs diff "
-              f"{float(np.abs(first - first_wave).max()):.3e}", flush=True)
+        print(f"  vs the wave frame (same key, same pixels): {close.mean() * 100:.4f}% pixels "
+              f"allclose ({int((~close).sum())} differ), max abs diff "
+              f"{float(np.abs(first - ref).max()):.3e}", flush=True)
         launched = {k: v[0] for k, v in counts.items()}
         plain = sum(sum(v[1].values()) for v in counts.values())
         print(f"  {engine} frame: launches {json.dumps(launched)}, plain-version calls {plain}",
@@ -2192,7 +2277,7 @@ def _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w, cam
                f"the {engine} frame launched a kernel")
         _check(plain == 0, f"the {engine} frame called a plain version")
         _check(steps["closest"] > 0 and steps["any"] > 0, f"the {engine} frame ran no step")
-        _check(first.shape == (720, 1280, 3) and bool(np.isfinite(first).all()),
+        _check(first.shape == ref.shape and bool(np.isfinite(first).all()),
                f"{engine} image not finite or of the wrong shape")
         _check(close.mean() >= WAVE_FRAME_CLOSE, f"the {engine} frame vs the wave frame")
         _check(traverse.overflow_pushes(dev) == 0, f"the {engine} frame overflowed its stack")
@@ -2347,6 +2432,312 @@ def _classic_path(dev, card, cfg, engines, scene1, scene2, handle2, scene_w, cam
            and phase_counts["trace_rows"]["closest"] > 0,
            "the classic path did not launch B1, B2 and B3")
     return report
+
+
+def _launch_counts(engines) -> dict:
+    return {c.__name__.rsplit(".", 1)[1]: dict(c.LAUNCHES) for c in engines}
+
+
+def _parallel_rank(rank, n, cfg, sets, parts, train_ids, params0, target):
+    """Phase 16b-d on one of ``n`` gloo ranks that share the card (run by
+    ``spawn_ranks``): (b) the sharded bench frame, bf16 and f32, and the bf16
+    frame with ring resharding, each stitched by ``gather_rows`` (returned by
+    rank 0), with the rays each bounce donated; (c) the partitioned closest
+    hit and occlusion of the three ray sets, and this rank's table bytes;
+    (d) one sharded train step on this rank's block of ``train_ids``: the
+    averaged gradients and the parameters after it. Also each kernel's
+    launches on this rank and each sub-phase's seconds."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, clone_params,
+                                                                 param_items)
+    from physically_based_ray_tracer_tpu_torch.diff.inverse import make_sharded_train_step
+    from physically_based_ray_tracer_tpu_torch.ops import (leaf_mt, trace, trace_bf16,
+                                                          trace_rows, wave_level, wave_scan)
+    from physically_based_ray_tracer_tpu_torch.parallel import resharding
+    from physically_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from physically_based_ray_tracer_tpu_torch.parallel.object_partition import (
+        partition_instances, partitioned_any, partitioned_closest, table_bytes)
+    from physically_based_ray_tracer_tpu_torch.parallel.shard import (gather_rows, replicate,
+                                                                     shard_rows, sharded_frame)
+    from physically_based_ray_tracer_tpu_torch.render.film import FilmState
+    from physically_based_ray_tracer_tpu_torch.render.renderer import morton_pixel_order
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    engines = (trace, trace_bf16, trace_rows, leaf_mt, wave_scan, wave_level)
+    for c in engines:
+        c.reset_counts()
+    out, sec = {}, {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(n, backend="gloo")
+    dev = mesh.device
+    scene, cam, _ = build_bench_scene(flatten="auto", device=dev)
+    scene, cam = replicate(mesh, (scene, cam))
+    ids = shard_rows(mesh, torch.from_numpy(morton_pixel_order(cfg.width, cfg.height)))
+    film = FilmState.zeros(ids.shape[0], device=dev)
+    cfg32 = cfg.replace(leaf_precision="f32")
+    for name, c, block in (("bf16", cfg, 0), ("f32", cfg32, 0),
+                           ("bf16_reshard", cfg, PAR_RESHARD_BLOCK),
+                           ("f32_reshard", cfg32, PAR_RESHARD_BLOCK)):
+        resharding.reset_counts()
+        avg = gather_rows(mesh, sharded_frame(mesh, c, reshard_block=block)(
+            scene, cam, film, 0, 0, ids)[1])
+        if rank == 0:
+            out[name] = avg
+        out[f"{name}_donated"] = [resharding.DONATED.get(b, 0) for b in range(cfg.bounces)]
+    torch.cuda.synchronize()
+    sec["16b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ps = partition_instances(*parts, n_shards=n)
+    obj = make_mesh(n, axis="obj", backend="gloo")
+    for sname, (o, d, tm) in sets.items():
+        o, d, tm = o.to(dev), d.to(dev), tm.to(dev)
+        h = partitioned_closest(ps, obj, o, d, tm)
+        out[f"{sname}_hit"] = (h.t, h.prim, h.inst)
+        out[f"{sname}_occ"] = partitioned_any(ps, obj, o, d, tm)
+    out["table_bytes"] = table_bytes(ps.local(rank, dev)[0])
+    torch.cuda.synchronize()
+    sec["16c"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    params = clone_params(replicate(mesh, params0))
+    step = make_sharded_train_step(mesh, scene, cam, cfg, adam(params, 1e-2))
+    out["loss"] = float(step(params, 0, 0, shard_rows(mesh, train_ids),
+                             shard_rows(mesh, target)))
+    out["grads"] = {"/".join(p): v.grad for p, v in param_items(params) if v.requires_grad}
+    out["params"] = {"/".join(p): v.detach() for p, v in param_items(params)}
+    torch.cuda.synchronize()
+    sec["16d"] = time.perf_counter() - t0
+    out["launches"] = _launch_counts(engines)
+    out["seconds"] = sec
+    obj.close()
+    mesh.close()
+    return out
+
+
+def _parallel_path(dev, card, cfg, engines, scene2, cam, handle2, sets):
+    """Phase 16: the parallel path. (a) a one-rank NCCL mesh in this
+    process: the sharded bench frame and train step bit-equal to the
+    unsharded ones; (b-d) ``PAR_RANKS`` gloo ranks spawned on the card
+    (``_parallel_rank``): sharded and resharded frames, partitioned
+    tracing, the sharded train step; (e) ``measure_work_invariance`` and a
+    ``utils/profiling.trace`` of one frame. Returns the phase's report
+    (each module's launches over the phase, summed over the ranks)."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, apply_params,
+                                                                 clone_params, map_params,
+                                                                 param_items, render_color)
+    from physically_based_ray_tracer_tpu_torch.diff.inverse import (make_sharded_train_step,
+                                                                    make_train_step)
+    from physically_based_ray_tracer_tpu_torch.ops import trace
+    from physically_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh, spawn_ranks
+    from physically_based_ray_tracer_tpu_torch.parallel.object_partition import table_bytes
+    from physically_based_ray_tracer_tpu_torch.parallel.scaling import measure_work_invariance
+    from physically_based_ray_tracer_tpu_torch.parallel.shard import shard_rows, sharded_frame
+    from physically_based_ray_tracer_tpu_torch.render.film import FilmState
+    from physically_based_ray_tracer_tpu_torch.render.renderer import (frame_fn,
+                                                                       morton_pixel_order)
+    from physically_based_ray_tracer_tpu_torch.utils.profiling import TRACE_FILE, annotate, trace as ptrace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    phase_counts = {}
+    for c in engines:
+        c.reset_counts()
+
+    def add_counts(counts):
+        for mod, launches in counts.items():
+            acc = phase_counts.setdefault(mod, {})
+            for k, v in launches.items():
+                acc[k] = acc.get(k, 0) + v
+
+    def parent_counts():
+        add_counts(_launch_counts(engines))
+        for c in engines:
+            c.reset_counts()
+
+    n = cfg.n_pixels
+    order = torch.from_numpy(morton_pixel_order(cfg.width, cfg.height)).to(dev)
+
+    def frame(c, step=None, ids=order):
+        fn = step or (lambda *a: frame_fn(*a, cfg=c))
+        return fn(scene2, cam, FilmState.zeros(ids.shape[0], device=dev), 0, 0, ids)[1]
+
+    # (a) one NCCL rank in this process: bit-equal to the unsharded frame
+    # and train step
+    t0 = time.perf_counter()
+    ref16 = frame(cfg)
+    ref32 = frame(cfg.replace(leaf_precision="f32"))
+    mesh = make_mesh(1, device=dev)
+    _check(mesh.backend == "nccl" and mesh.size == 1, f"the one-rank mesh: {mesh}")
+    one = torch.ones(4, device=dev)
+    _check(torch.equal(mesh.psum(one), one) and torch.equal(mesh.all_gather(one)[0], one),
+           "NCCL collectives on a one-rank group")
+    avg = frame(cfg, sharded_frame(mesh, cfg), shard_rows(mesh, order))
+    differ = int((avg != ref16).any(dim=1).sum())
+    print(f"16a sharded bf16 frame, one NCCL rank, vs unsharded (same key, sample): "
+          f"{differ} pixels differ [{card}]", flush=True)
+    _check(differ == 0, "16a: the one-rank sharded frame differs from the unsharded frame")
+    gscene, gcam, target, wrong, _ = _bench_grad_problem(dev, cfg)
+    pid = torch.from_numpy(_frame_pixels(cfg, DIFF_PIXELS, np.random.default_rng(1))).to(dev)
+    stepped = []
+    for make in (lambda opt: make_train_step(gscene, gcam, cfg, opt),
+                 lambda opt: make_sharded_train_step(mesh, gscene, gcam, cfg, opt)):
+        p = clone_params(wrong)
+        loss = float(make(adam(p, 1e-2))(p, 0, 0, pid, target[pid.long()]))
+        stepped.append((loss, [v.detach().clone() for _, v in param_items(p)]))
+    same = stepped[0][0] == stepped[1][0] and all(
+        torch.equal(a, b) for a, b in zip(stepped[0][1], stepped[1][1]))
+    print(f"16a sharded train step, one NCCL rank, {DIFF_PIXELS} pixels: loss "
+          f"{stepped[1][0]:.6e}, loss and parameters bit-equal to make_train_step: {same}",
+          flush=True)
+    _check(same, "16a: the one-rank sharded train step differs from make_train_step")
+    mesh.close()
+    parent_counts()
+    sec = {"16a": time.perf_counter() - t0}
+
+    # (b-d) gloo ranks spawned on the card
+    t0 = time.perf_counter()
+    cpu_sets = {k: tuple(x.cpu() for x in v) for k, v in sets.items()}
+    parts = ([m.corners.reshape(-1, 3, 3).astype(np.float32) for m in handle2.models],
+             np.array([i.model for i in handle2.instances], np.int64),
+             np.stack([i.transform for i in handle2.instances]).astype(np.float32))
+    train_ids = torch.from_numpy(_frame_pixels(cfg, PAR_TRAIN_PIXELS,
+                                               np.random.default_rng(2)))
+    p0 = map_params(wrong, lambda k, x: x.detach().cpu())
+    tgt = target[train_ids.to(dev).long()].cpu()
+    out = spawn_ranks(_parallel_rank, PAR_RANKS, backend="gloo", timeout=600, args=(
+        PAR_RANKS, cfg, cpu_sets, parts, train_ids, p0, tgt))
+    spawn_s = time.perf_counter() - t0
+    for o in out:
+        add_counts(o["launches"])
+    for k in ("16b", "16c", "16d"):
+        sec[k] = out[0]["seconds"][k]
+    sec["16b-d spawned"] = spawn_s
+
+    # (b) frames. B1 traces each ray alone, so the f32 frames are held bit
+    # for bit to the unsharded frame, and within PAR_RESHARD_TOL when
+    # resharded. B2 breaks an exact bf16 tie inside a leaf group by the
+    # ray's lane (its co-sorted position mod 128, the JAX kernel's rule), so
+    # its frame depends on the batches (ROADMAP §C): the sharded bf16 frame
+    # is held bit for bit to each rank's block rendered here (the same
+    # batches), and its difference from the unsharded frame is printed; the
+    # resharded bf16 frame (donation changes the batches) may differ from
+    # the unresharded one in PAR_BF16_RESHARD_DIFFER of its pixels, within
+    # the bf16 engine's frame contract (phase 7's)
+    ref16_blocks = torch.cat([frame(cfg, ids=b) for b in order.chunk(PAR_RANKS)])
+    results = {}
+    for name, ref, what in (("bf16", ref16_blocks, "each rank's block rendered here"),
+                            ("f32", ref32, "the unsharded frame"),
+                            ("bf16_reshard", ref16_blocks, "the unresharded frame"),
+                            ("f32_reshard", ref32, "the unresharded frame")):
+        got = torch.from_numpy(out[0][name]).to(dev)
+        differ = int((got != ref).any(dim=1).sum())
+        donated = [o[f"{name}_donated"] for o in out]
+        a, b = got.clamp(0, 1), ref.clamp(0, 1)
+        results[name] = dict(
+            differ=differ, close=bool(torch.allclose(got, ref, **PAR_RESHARD_TOL)),
+            mse=float(((a - b) ** 2).mean()),
+            off=float(((a - b).abs().amax(dim=1) > 0.05).float().mean()), donated=donated)
+        print(f"16b {name} frame on {PAR_RANKS} gloo ranks, stitched, vs {what}: {differ} "
+              f"pixels differ, max abs diff {float((got - ref).abs().max()):.3e}; rays donated "
+              f"per bounce by each rank {donated} [{card}]", flush=True)
+    got16 = torch.from_numpy(out[0]["bf16"]).to(dev)
+    n_chunks = -(-n // cfg.chunk_pixels)
+    print(f"16b bf16 frame on {PAR_RANKS} gloo ranks vs the unsharded frame ({n_chunks} "
+          f"chunks): {int((got16 != ref16).any(dim=1).sum())} pixels differ "
+          f"(B2's exact bf16 ties follow the batch), max abs diff "
+          f"{float((got16 - ref16).abs().max()):.3e}", flush=True)
+    r = results
+    _check(r["bf16"]["differ"] == 0 and r["f32"]["differ"] == 0,
+           "16b: a sharded frame differs from the unsharded one")
+    _check(r["f32_reshard"]["close"], "16b: the resharded f32 frame vs the unresharded one")
+    _check(r["bf16_reshard"]["differ"] <= PAR_BF16_RESHARD_DIFFER * n
+           and r["bf16_reshard"]["mse"] < 2e-3 and r["bf16_reshard"]["off"] < 0.03,
+           "16b: the resharded bf16 frame vs the unresharded one")
+    _check(all(sum(map(sum, r[k]["donated"])) > 0 for k in ("bf16_reshard", "f32_reshard")),
+           "16b: resharding donated no ray")
+
+    # (c) partitioned tracing vs the unpartitioned two-level B1 trace
+    union_bytes = table_bytes(scene2.dense)
+    print(f"16c table bytes per rank {[o['table_bytes'] for o in out]} vs the union's "
+          f"{union_bytes} [{card}]", flush=True)
+    _check(all(o["table_bytes"] <= union_bytes for o in out), "16c: a shard is larger")
+    for sname, (o_, d_, tm) in sets.items():
+        h = trace.sorted_closest_dense(scene2.dense, o_, d_, tm)
+        occ = trace.sorted_any_dense(scene2.dense, o_, d_, tm)
+        *_, tie = _plain_hit(scene2.dense, o_, d_, tm)
+        t, prim, inst = (torch.from_numpy(x).to(dev) for x in out[0][f"{sname}_hit"])
+        pocc = torch.from_numpy(out[0][f"{sname}_occ"]).to(dev)
+        found, pfound = h.prim >= 0, prim >= 0
+        both = found & pfound
+        r = dict(found_mismatch=int((found != pfound).sum()),
+                 occ_mismatch=int((occ != pocc).sum()),
+                 prim_mismatch=int(((prim != h.prim) & both & ~tie).sum()),
+                 ties=int(tie.sum()),
+                 t_max_rel=float(((t - h.t).abs() / h.t.abs())[both].max()),
+                 ranks_agree=all(all(np.array_equal(a, b) for a, b in
+                                     zip(o[f"{sname}_hit"], out[0][f"{sname}_hit"]))
+                                 and np.array_equal(o[f"{sname}_occ"], out[0][f"{sname}_occ"])
+                                 for o in out))
+        print(f"16c partitioned vs two-level B1, {sname}: {json.dumps(r)}", flush=True)
+        _check(r["found_mismatch"] == 0 and r["occ_mismatch"] == 0 and r["prim_mismatch"] == 0
+               and r["t_max_rel"] <= T_RTOL and r["ranks_agree"],
+               f"16c: the partitioned trace differs from the union trace on {sname}")
+    parent_counts()
+
+    # (d) the averaged gradient vs one rank's on the same pixels: the mean
+    # of the gradients of the ranks' blocks, each traced as its own batch
+    # here (the gate: B2's exact ties follow the batch, as in (b)), and the
+    # gradient of all the pixels traced as one batch (printed)
+    def grads(ids, tg):
+        p = clone_params(wrong)
+        s_, c_ = apply_params(gscene, gcam, p)
+        torch.mean((render_color(s_, c_, cfg, 0, 0, ids) - tg) ** 2).backward()
+        return {"/".join(k): v.grad if v.grad is not None else torch.zeros_like(v)
+                for k, v in param_items(p) if v.requires_grad}
+
+    ids_d, tgt_d = train_ids.to(dev), tgt.to(dev)
+    blocks = [grads(i, t) for i, t in zip(ids_d.chunk(PAR_RANKS), tgt_d.chunk(PAR_RANKS))]
+    whole = grads(ids_d, tgt_d)
+    got = {k: torch.from_numpy(v).to(dev) for k, v in out[0]["grads"].items()}
+    gaps = {k: _rel(got[k], sum(b[k] for b in blocks) / PAR_RANKS) for k in whole}
+    gaps_whole = {k: _rel(got[k], whole[k]) for k in whole}
+    equal = all(np.array_equal(out[0]["params"][k], o["params"][k])
+                for o in out for k in out[0]["params"])
+    print(f"16d sharded train step on {PAR_RANKS} gloo ranks, {PAR_TRAIN_PIXELS} pixels: "
+          f"losses {[o['loss'] for o in out]}; averaged gradient vs one rank's (the mean of "
+          f"the blocks' gradients), ||g - g1|| / ||g1|| per group {json.dumps(gaps)}; vs the "
+          f"gradient of the pixels as one batch {json.dumps(gaps_whole)}; parameters "
+          f"bit-equal across ranks: {equal} [{card}]", flush=True)
+    _check(all(v <= PAR_GRAD_RTOL for v in gaps.values()),
+           "16d: the averaged gradient differs from one rank's")
+    _check(equal, "16d: the ranks' parameters differ after the step")
+    parent_counts()
+
+    # (e) work invariance; a profiled frame
+    t0 = time.perf_counter()
+    rows = measure_work_invariance(scene2, cam, cfg, divisors=PAR_DIVISORS, iters=3)
+    print(f"16e measure_work_invariance (bf16 bench frame, strided subsets): "
+          f"{json.dumps(rows)} [{card}]", flush=True)
+    log_dir = os.path.join(root, "build", "torch_trace")
+    with ptrace(log_dir):
+        with annotate("frame"):
+            frame(cfg)
+            torch.cuda.synchronize()
+    with open(os.path.join(log_dir, TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    b2 = any("traverse_bf16_kernel" in nm for nm in names)
+    print(f"16e trace: {len(names)} event names, 'frame' span {'frame' in names}, B2's "
+          f"kernel (traverse_bf16_kernel) {b2}", flush=True)
+    _check("frame" in names and b2, "16e: the trace lacks the frame span or B2's kernel")
+    parent_counts()
+    sec["16e"] = time.perf_counter() - t0
+    print(f"parallel path seconds by sub-phase: {json.dumps(sec)}", flush=True)
+    print(f"parallel path launches (phase total, summed over the ranks): "
+          f"{json.dumps(phase_counts)}", flush=True)
+    _check(phase_counts["trace"]["closest"] > 0 and phase_counts["trace_bf16"]["closest"] > 0,
+           "the parallel path did not launch B1 and B2")
+    return {"launches": phase_counts, "seconds": sec}
 
 
 def main() -> int:
@@ -2719,6 +3110,12 @@ def main() -> int:
                                 cam, sets, first_wave, first32)
     print(f"classic-BVH path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
 
+    # 16. the parallel path: one NCCL rank here, gloo ranks spawned on the
+    # card, partitioned tracing, the sharded train step, profiling
+    with _Phase("parallel path") as ph:
+        par = _parallel_path(dev, card, cfg, engines, scene2, cam, handle2, sets)
+    print(f"parallel path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
+
     # 14. result lines
     def err(eng, mode):
         if eng == "bf16":
@@ -2741,6 +3138,11 @@ def main() -> int:
         """The kernel's launches over phase 15 (the classic-BVH path)."""
         return classic["launches"].get(module, {}).get(mode, 0)
 
+    def parallel_launches(module, mode):
+        """The kernel's launches over phase 16 (the parallel path), summed
+        over the ranks."""
+        return par["launches"].get(module, {}).get(mode, 0)
+
     kernels = []
     for eng, launches in (("f32", launches32), ("bf16", launches16),
                           ("rows", launches_rows)):
@@ -2756,7 +3158,8 @@ def main() -> int:
                             "bound_by": b_by, "library_ms": None,
                             "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode),
                             "diff_path_launches": diff_launches(MODULE_OF[eng], mode),
-                            "classic_path_launches": classic_launches(MODULE_OF[eng], mode)})
+                            "classic_path_launches": classic_launches(MODULE_OF[eng], mode),
+                            "parallel_path_launches": parallel_launches(MODULE_OF[eng], mode)})
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does, and
                 # the warps that left the shared walk
@@ -2779,7 +3182,9 @@ def main() -> int:
                  "diff_path_launches": diff_launches(name, "scan" if name == "wave_scan"
                                                      else mode),
                  "classic_path_launches": classic_launches(name, "scan" if name == "wave_scan"
-                                                           else mode)}
+                                                           else mode),
+                 "parallel_path_launches": parallel_launches(name, "scan" if name == "wave_scan"
+                                                             else mode)}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
@@ -2795,6 +3200,7 @@ def main() -> int:
                         "dynamic_path_launches": dyn_launches("wave_level", mode),
                         "diff_path_launches": diff_launches("wave_level", mode),
                         "classic_path_launches": classic_launches("wave_level", mode),
+                        "parallel_path_launches": parallel_launches("wave_level", mode),
                         "registers": max((u["registers"] for u in level_use.values()),
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())

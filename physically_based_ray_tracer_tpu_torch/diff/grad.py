@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig
+from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
 from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 
@@ -45,8 +46,6 @@ ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 # the constant of the instance_trs group: carried, never optimised
 CONSTANT_KEYS = ("base_inv",)
-_SHARDED = ("a sharded loss (axis_name) needs the port of parallel/, "
-            "ROADMAP.md §A item 9")
 
 
 # ---------------------------------------------------------------------------
@@ -161,16 +160,42 @@ def render_color(scene, cam, cfg: RenderConfig, key: int, sample: int,
     return color
 
 
+class _PMean(torch.autograd.Function):
+    """``lax.pmean`` as ``jax.grad`` differentiates it inside ``shard_map``
+    with ``check_vma=False``: the forward is the group's mean, and the
+    backward all-reduces the cotangent (the transpose of ``psum`` there is
+    ``psum``), divided by the size as well."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.pmean(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.pmean(g), None
+
+
 def make_loss_fn(scene, cam, cfg: RenderConfig, target, pixel_ids,
                  axis_name: str | None = None):
-    """loss_fn(params, key, sample): the L2 image loss over a pixel batch."""
-    if axis_name is not None:
-        raise NotImplementedError(_SHARDED)
+    """loss_fn(params, key, sample): the L2 image loss over a pixel batch.
+
+    With ``axis_name`` (a mesh registered under that name,
+    ``parallel/mesh.py``; ``pixel_ids`` and ``target`` are this rank's
+    block) the loss is averaged over the group, as the JAX package's is.
+    Its gradient is then each rank's own block's, not the group's average:
+    the loss's cotangent, 1 on every rank, is all-reduced and divided by the
+    size, so each rank's loss term gets 1 (the JAX package's numbers under
+    ``shard_map(check_vma=False)``; ROADMAP §C). ``diff/inverse.py``'s
+    train step averages the gradients itself."""
 
     def loss_fn(params, key, sample):
         s, c = apply_params(scene, cam, params)
         color = render_color(s, c, cfg, key, sample, pixel_ids)
-        return torch.mean((color - target) ** 2)
+        loss = torch.mean((color - target) ** 2)
+        if axis_name is not None:
+            loss = _PMean.apply(loss, lookup(axis_name))
+        return loss
 
     return loss_fn
 

@@ -6,8 +6,9 @@ loss against the target, runs the backward pass and one Adam step
 (``torch.optim.Adam`` with optax.adam's defaults, so a run carried over
 from the JAX package takes the same steps). The optimiser owns the
 parameters' state, as torch optimisers do, where optax threads it through
-the step. The sharded step (pixels over a mesh, gradients averaged across
-devices) waits for the port of ``parallel/``.
+the step. The sharded step shards the pixels over a mesh's ranks and
+averages the gradients across them with one all_reduce before the step, so
+every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -15,10 +16,10 @@ from __future__ import annotations
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig
-from physically_based_ray_tracer_tpu_torch.diff.grad import (_SHARDED, adam,
-                                                             apply_params,
-                                                             clone_params,
-                                                             render_color)
+from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, apply_params,
+                                                             clone_params, render_color,
+                                                             trainable)
+from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
 
 
 def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimizer,
@@ -26,9 +27,15 @@ def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimi
     """Returns step(params, key, sample, pixel_ids, target) -> loss: one
     Adam step of ``optimizer``, which was built over ``trainable(params)``
     (``diff.grad.adam``), in place. ``loss`` is the loss before the step,
-    as a detached 0-d tensor."""
-    if axis_name is not None:
-        raise NotImplementedError(_SHARDED)
+    as a detached 0-d tensor.
+
+    With ``axis_name`` (a mesh registered under that name,
+    ``parallel/mesh.py``; ``pixel_ids`` and ``target`` are this rank's
+    block): after the backward, every trainable leaf's gradient (zeros
+    where it got none), in ``param_items`` order, goes into one flat
+    all_reduce and is divided by the group's size (``lax.pmean`` of the
+    gradients); the loss is averaged the same way. Every rank then takes
+    the same Adam step."""
 
     def step(params, key, sample, pixel_ids, target):
         optimizer.zero_grad(set_to_none=True)
@@ -36,17 +43,33 @@ def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimi
         color = render_color(s, c, cfg, key, sample, pixel_ids)
         loss = torch.mean((color - target) ** 2)
         loss.backward()
+        loss = loss.detach()
+        if axis_name is not None:
+            mesh = lookup(axis_name)
+            leaves = trainable(params)
+            grads = [torch.zeros_like(v) if v.grad is None else v.grad for v in leaves]
+            flat = mesh.pmean(torch.cat([g.reshape(-1) for g in grads]))
+            for v, g in zip(leaves, flat.split([g.numel() for g in grads])):
+                v.grad = g.view_as(v)
+            loss = mesh.pmean(loss)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
 def make_sharded_train_step(mesh, scene, cam, cfg: RenderConfig, optimizer,
                             axis: str = "tiles"):
-    """Pixels sharded over a mesh axis with the gradient averaged across it:
-    not ported yet."""
-    raise NotImplementedError(_SHARDED)
+    """The train step of one rank of ``mesh``: ``pixel_ids`` and ``target``
+    are this rank's block (``parallel/shard.py::shard_rows``), the
+    parameters and the optimiser replicated (the same values on every rank,
+    e.g. through ``shard.replicate``); the gradients are averaged over the
+    mesh (``make_train_step(axis_name=axis)``), so the ranks' parameters
+    stay equal."""
+    if axis != mesh.axis:
+        raise ValueError(f"make_sharded_train_step(axis={axis!r}) on a mesh of axis "
+                         f"{mesh.axis!r}")
+    return make_train_step(scene, cam, cfg, optimizer, axis_name=axis)
 
 
 def fit(scene, cam, cfg: RenderConfig, params0: dict, target, pixel_ids,

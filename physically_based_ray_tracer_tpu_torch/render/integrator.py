@@ -43,6 +43,13 @@ As in the JAX package, tables with more than ``GLO_SMEM_LIMIT`` leaf groups
 take the f32 engine even when bf16 is asked for; the launch counters show
 which engine ran. Options the port does not carry raise
 ``NotImplementedError`` naming the option; see ``check_supported``.
+
+With ``reshard_axis`` set (``parallel/shard.py::sharded_frame(...,
+reshard_block=N)``), each bounce donates surplus live lanes to the next
+rank of that axis's process group before the closest-hit pass and routes
+their results home after the shading block (``parallel/resharding.py``);
+the bounce gate is then off, so that every rank joins every bounce's
+collectives.
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ from physically_based_ray_tracer_tpu_torch.ops import (trace, trace_bf16, trace_
                                                       traverse, traverse_packet)
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
+from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
+from physically_based_ray_tracer_tpu_torch.parallel.resharding import (ring_donate,
+                                                                      ring_restore)
 from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays, sample_skybox
 from physically_based_ray_tracer_tpu_torch.scene.lights import sample_area_rect
 from physically_based_ray_tracer_tpu_torch.scene.material import (
@@ -76,8 +86,10 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
     a traversal name the JAX package does not name (it traces those with
     the lane engine; the port refuses them), a leaf precision other than
     bf16 / f32, a wave leaf test other than mt / woop, an engine of the
-    classic BVH (wave, packet, lane) on a scene without one, and
-    cross-device ray resharding."""
+    classic BVH (wave, packet, lane) on a scene without one. Ring
+    resharding (``reshard_axis`` with ``reshard_ndev > 1``) needs a live
+    process group registered under that name with that many ranks
+    (``parallel/mesh.py::make_mesh``): without one, a RuntimeError."""
     if cfg.traversal not in ("pallas", "pallas_rows") + CLASSIC_ENGINES:
         raise NotImplementedError(
             f"traversal={cfg.traversal!r}: the port carries the dense-BVH "
@@ -95,8 +107,10 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
             "and 'f32'")
     if cfg.reshard_axis is not None and cfg.reshard_ndev > 1:
-        raise NotImplementedError("reshard_axis: cross-device ray resharding "
-                                  "is not ported")
+        mesh = lookup(cfg.reshard_axis)
+        if mesh.size != cfg.reshard_ndev:
+            raise ValueError(f"reshard_ndev={cfg.reshard_ndev}, but the group of "
+                             f"reshard_axis={cfg.reshard_axis!r} has {mesh.size} ranks")
 
 
 def _use_bf16(cfg: RenderConfig, dense) -> bool:
@@ -518,20 +532,42 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
     throughput = torch.ones((B, 3), dtype=o.dtype, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
     primary_t = torch.full((B,), BVH_FAR, dtype=o.dtype, device=dev)
-    S = _snap_subtiles(B, cfg.shade_tile)
-    n = B // S
     records = []
+    # Ring resharding (parallel/resharding.py): each bounce donates up to
+    # reshard_block surplus live lanes to the ring neighbour before the
+    # closest pass and routes their results home after the shading block;
+    # a lane's result depends on its ray and pixel id, not on the rank that
+    # traces it (up to the bf16 engine's exact ties, which follow the
+    # batch). Off on one rank and when debugging.
+    mesh = (lookup(cfg.reshard_axis) if cfg.reshard_axis is not None
+            and cfg.reshard_ndev > 1 and not collect_debug else None)
 
     for depth in range(cfg.bounces):
-        if not collect_debug and not bool(alive.any()):
-            continue           # bounce gate: nothing alive, carry unchanged
+        # bounce gate: nothing alive, carry unchanged. Off under resharding:
+        # its predicate is the rank's own, and a rank that skipped the
+        # bounce would miss its collectives while the others wait in them.
+        # The post-hit gates in _gated hold no collective and stay.
+        if not collect_debug and mesh is None and not bool(alive.any()):
+            continue
+        pid = pixel_id
+        if mesh is not None:
+            lanes, alive, meta = ring_donate(
+                dict(o=o, d=d, radiance=radiance, throughput=throughput,
+                     primary_t=primary_t, pixel_id=pixel_id),
+                alive, mesh, min(cfg.reshard_block, B), bounce=depth)
+            o, d, radiance, throughput, primary_t, pid = (
+                lanes[k] for k in ("o", "d", "radiance", "throughput", "primary_t",
+                                   "pixel_id"))
+        W = o.shape[0]
+        S = _snap_subtiles(W, cfg.shade_tile)
+        n = W // S
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
         hit = _closest(scene, cfg, o, d, t_init, sort=True, refine="fast")
         lanes = dict(o=o, d=d, radiance=radiance, throughput=throughput,
                      alive=alive, primary_t=primary_t, hit_t=hit.t,
                      prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
-                     alive_in=alive, pixel_id=pixel_id)
+                     alive_in=alive, pixel_id=pid)
         if collect_debug:
             rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst)
             out = _shade(scene, cfg, packs, lanes, key, sample, depth, debug=rec)
@@ -539,13 +575,15 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
                                 alive_out=out["alive"], next_dir=out["d"]))
         elif S == 1:
             out = _gated(scene, cfg, packs, lanes, key, sample, depth,
-                         alive_known=True)
+                         alive_known=mesh is None)
         else:
             parts = [_gated(scene, cfg, packs,
                             {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
                             key, sample, depth)
                      for i in range(S)]
             out = {k: torch.cat([p[k] for p in parts]) for k in _CARRY}
+        if mesh is not None:
+            out = ring_restore({k: out[k] for k in _CARRY}, meta, mesh)
         o, d, radiance, throughput, alive, primary_t = (out[k] for k in _CARRY)
 
     neg1 = torch.full((B,), -1, dtype=torch.int32, device=dev)

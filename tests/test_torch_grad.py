@@ -441,13 +441,38 @@ def test_apply_params_leaves_the_scene_unchanged(setup):
 
 
 def test_sharded_loss_is_not_ported(setup):
+    """The sharded loss and train steps on a one-rank gloo mesh in this
+    process equal the unsharded ones bit for bit (the mean over one rank is
+    the identity); without a live group under the axis name they raise.
+    tests/test_torch_sharded_train.py holds them to JAX on two ranks."""
+    from physically_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh
     scene, cam, _ = setup
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tgrad.make_loss_fn(scene, cam, CFG, None, IDS, axis_name="tiles")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(scene, cam, CFG, None, axis_name="tiles")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_sharded_train_step(None, scene, cam, CFG, None)
+    target = torch.zeros((CFG.n_pixels, 3))
+    start = {"base_color": scene.mat_base * 0.5, "roughness": scene.mat_rough,
+             "point_color": scene.lights.point_color}
+    with pytest.raises(RuntimeError, match="no live process group"):
+        tgrad.make_loss_fn(scene, cam, CFG, target, IDS, axis_name="tiles")(
+            tgrad.clone_params(start), 0, 0)
+    mesh = make_mesh(1, device="cpu")
+    try:
+        grads, losses, stepped = [], [], []
+        for axis in (None, "tiles"):
+            p = tgrad.clone_params(start)
+            loss = tgrad.make_loss_fn(scene, cam, CFG, target, IDS, axis_name=axis)(p, 0, 0)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append(p["base_color"].grad.clone())
+        for make in (lambda opt: make_train_step(scene, cam, CFG, opt),
+                     lambda opt: make_train_step(scene, cam, CFG, opt, axis_name="tiles"),
+                     lambda opt: make_sharded_train_step(mesh, scene, cam, CFG, opt)):
+            p = tgrad.clone_params(start)
+            make(tgrad.adam(p, 1e-2))(p, 0, 0, IDS, target)
+            stepped.append(torch.cat([v.detach().reshape(-1) for v in tgrad.trainable(p)]))
+    finally:
+        mesh.close()
+    assert losses[0] == losses[1] and torch.equal(grads[0], grads[1])
+    assert grads[0].abs().max() > 0
+    assert torch.equal(stepped[0], stepped[1]) and torch.equal(stepped[0], stepped[2])
 
 
 # ---------------------------------------------------------------------------

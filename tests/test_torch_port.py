@@ -28,6 +28,8 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import DenseBVH  # noqa: E4
 from physically_based_ray_tracer_tpu_torch.bvh.types import BVHArrays  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.diff import grad as dgrad  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.parallel import mesh as tmesh  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.parallel import scaling  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import (  # noqa: E402
     check_supported, render_sample)
 from physically_based_ray_tracer_tpu_torch.render import debugger  # noqa: E402
@@ -63,7 +65,9 @@ def test_port_imports_no_jax():
               "scene.serialization", "scene.loader", "scene.presets", "session",
               "animate", "bvh.refit", "bvh.cache", "render.debugger",
               "utils.debug_draw", "diff.grad", "diff.inverse", "diff.checkpoint",
-              "inverse_material"):
+              "inverse_material", "parallel.mesh", "parallel.shard",
+              "parallel.resharding", "parallel.object_partition", "parallel.scaling",
+              "utils.profiling", "dryrun"):
         assert f"physically_based_ray_tracer_tpu_torch.{m}" in mods, m
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
@@ -106,17 +110,21 @@ def test_config_mirrors_jax():
     (dict(reshard_axis="x", reshard_ndev=2), "reshard_axis"),
 ])
 def test_unported_options_raise(kw, name):
+    """Options the port does not carry raise NotImplementedError; ring
+    resharding is carried, and raises a RuntimeError when its axis names no
+    live process group (it never renders unsharded in its place)."""
     jscene, jcam = instanced_scene()
     scene, cam = port_scene(jscene), port_camera(jcam)
     cfg = port_config(SLICE_CFG).replace(**kw)
-    with pytest.raises(NotImplementedError, match=name):
+    exc = RuntimeError if name == "reshard_axis" else NotImplementedError
+    with pytest.raises(exc, match=name):
         check_supported(cfg, scene)
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(exc, match=name):
         render_sample(scene, cam, cfg, 0, 0, torch.arange(4, dtype=torch.int32))
     # refused before any device work: also with the default device (the
     # card), where there is none
     for device in ({}, {"device": "cpu"}):
-        with pytest.raises(NotImplementedError, match=name):
+        with pytest.raises(exc, match=name):
             Renderer(scene, cam, cfg, **device)
 
 
@@ -205,6 +213,9 @@ def _entry_points():
         "trs_params_from_instances": (dgrad.trs_params_from_instances,
                                       lambda: dgrad.trs_params_from_instances(
                                           port_instances(instances))),
+        "make_mesh": (tmesh.make_mesh, lambda: tmesh.make_mesh(1)),
+        "measure_scaling": (scaling.measure_scaling, lambda: scaling.measure_scaling(
+            scene, cam, port_config(SLICE_CFG))),
     }
 
 
@@ -215,7 +226,7 @@ ENTRY_POINTS = ["Renderer", "build_bench_scene", "scene_from_numpy", "build_scen
                 "lights_from_reference_json", "rebuild_scene", "EditSession",
                 "trace_pixel", "pixel_grid", "load_bvh", "load_dense", "cached_build_bvh",
                 "animate.run", "inverse_material.run", "params_from_numpy",
-                "trs_params_from_instances"]
+                "trs_params_from_instances", "make_mesh", "measure_scaling"]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
