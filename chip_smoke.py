@@ -298,11 +298,51 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    ``frame`` span and B2's kernel function. Prints each sub-phase's
    seconds, each kernel's launches over the phase summed over the ranks
    (B1 and B2 must launch) and the phase's seconds;
+17. the main path's parity gates (after 16): (a) the converged mean:
+   the fixture ``CONV_FIXTURE`` (``tests/golden/bench_converged_160x90_48spp.npz``,
+   written by ``tests/torch_converged_fixture.py``: the JAX package's
+   f32 and bf16 renders of the bench scene at 160x90, 4 bounces, AA, one
+   shadow ray, ``max_stack_depth=max(depth + 2, 32)``, the last of 48
+   ``Renderer.tick``s at seed 0, experiments/bf16_precision.py's
+   config), loaded with numpy, its config equal to this phase's
+   (``converged_fields``, which the fixture's generator also renders); the
+   port's ``build_bench_scene`` rendered with that config on the card,
+   48 ticks each, in one chunk (14,400 pixels: the JAX run's batches), f32
+   and bf16 at seed 0 and f32 at seed 1; experiments/bf16_precision.py's
+   statistics (mean, p99, p999 and max abs, MSE, pixels over 1%) of each
+   port image against JAX f32, of port bf16 against JAX bf16 and of the
+   fixture's pair, each with its ratios to the f32-vs-f32' noise floor
+   ``CONV_FLOOR`` (docs/BF16_PRECISION_r05.json; ``image_stats``, which
+   the generator also records), and the five worst
+   pixels of port f32 and bf16 against JAX f32 printed; gates: G1
+   MSE(port f32, JAX f32) <= ``CONV_JAX_BF16_VS_F32_MSE`` (1.97e-5, the
+   JAX package's own bf16-vs-f32 MSE, the same file), G2 MSE(port bf16,
+   JAX f32) <= twice that, with its mean, p99 and p999 abs below the
+   floor's, G3 MSE(port f32 seed 1, JAX f32 seed 0) within
+   ``CONV_FLOOR_BAND`` (0.8-1.25) of the floor's MSE (1.3756e-3); B1 and
+   B2 launched in both modes, no plain version called; each render's ms
+   a tick printed; (b) the ``BRDFConfig`` matrix and the oracle scenes,
+   card (kernels) vs CPU (plain versions), same key, each >=
+   ``PARITY_CLOSE`` (99%) of pixels allclose at rtol 2e-4, atol 2e-5:
+   ``parity_scenes``' builds of tests/test_parity_stochastic.py's scene
+   (rough, glass and mirror spheres, an emissive floor, point, spot and
+   directional lights) and tests/test_parity.py's (a sphere over a floor,
+   one directional light); one tick of the stochastic scene under the
+   default ``BRDFConfig`` and each of ``brdf_matrix()``'s 13 settings
+   (``parity_configs()["matrix"]``: 24x24, 3 bounces, AA off, f32); the
+   directional config's image and its BASECOLOR view (bf16);
+   ``trace_paths`` of the stochastic scene's 16x16 primary rays, 3
+   bounces, key 7; B1 and B2 launched in both modes. CPU tests pin the
+   scenes, configs and matrix to the JAX tests' (``tests/test_torch_oracle.py``,
+   ``tests/test_torch_brdf_images.py``) and ``CONV_*`` to the fixture and
+   the docs file (``tests/test_torch_converged.py``). Prints each
+   sub-phase's seconds and the phase's;
 14. prints the kernels' JSON line (each kernel's launches over phase 12
    under ``dynamic_path_launches``, over phase 13 under
    ``diff_path_launches``, over phase 15 under ``classic_path_launches``,
    over phase 16, summed over the ranks, under
-   ``parallel_path_launches``), the card line and, last, ``{"ok": true,
+   ``parallel_path_launches``, over phase 17a under
+   ``converged_path_launches``), the card line and, last, ``{"ok": true,
    "device": {...}}``.
 
 Every phase prints its wall time. Any failed phase raises, and the script
@@ -445,6 +485,29 @@ PAR_GRAD_RTOL = 1e-4
 PAR_RESHARD_TOL = dict(atol=2e-6, rtol=1e-5)
 PAR_BF16_RESHARD_DIFFER = 5e-4
 PAR_DIVISORS = (1, 2, 4)
+# the main path's parity gates (phase 17). 17a: the fixture of the JAX
+# package's converged renders (tests/torch_converged_fixture.py: the bench
+# scene at 160x90, 4 bounces, AA, one shadow ray, 48 ticks, seed 0, f32 and
+# bf16) and experiments/bf16_precision.py's statistics of that config
+# (docs/BF16_PRECISION_r05.json, taken on the CPU): the JAX engines'
+# bf16-vs-f32 MSE, which bounds the port's f32 against JAX's f32 (G1) and
+# twice which bounds the port's bf16 against JAX's f32 (G2), and the
+# f32-vs-f32' noise floor of two disjoint streams (seeds 0 and 1), whose mean,
+# p99 and p999 abs bound G2's and whose MSE the port's seed-1 render must
+# reach within CONV_FLOOR_BAND (G3)
+CONV_FIXTURE = os.path.join("tests", "golden", "bench_converged_160x90_48spp.npz")
+CONV_WIDTH, CONV_HEIGHT, CONV_SPP = 160, 90, 48
+CONV_JAX_BF16_VS_F32_MSE = 1.97e-5
+CONV_FLOOR = {"mean_abs": 0.010844, "p99_abs": 0.18326, "p999_abs": 0.34321,
+              "max_abs": 0.5329, "mse": 0.0013756, "pixels_over_1pct": 0.17924}
+CONV_FLOOR_BAND = (0.8, 1.25)
+# 17b: tests/test_torch_brdf_images.py's config (on tests/test_parity_stochastic.py's
+# scene, under the default BRDFConfig and each setting of brdf_matrix()),
+# tests/test_parity.py's directional config and tests/test_parity_stochastic.py's
+# paths (16x16, 3 bounces, key 7), card vs CPU at phase 9's tolerance
+MATRIX_SIZE, MATRIX_BOUNCES = 24, 3
+STOCH_SIZE, STOCH_BOUNCES, STOCH_KEY = 16, 3, 7
+PARITY_CLOSE = 0.99
 
 
 def _smi() -> str:
@@ -2740,6 +2803,236 @@ def _parallel_path(dev, card, cfg, engines, scene2, cam, handle2, sets):
     return {"launches": phase_counts, "seconds": sec}
 
 
+def brdf_matrix() -> list:
+    """tests/test_torch_shading.py's BRDF_MATRIX in the port's types (the
+    13 settings besides the default; tests/test_torch_brdf_images.py pins
+    the two lists equal)."""
+    from physically_based_ray_tracer_tpu_torch.config import NDF, DiffuseModel, SpecularModel
+    return [dict(ndf=NDF.BECKMANN, use_optimized_g2=False),
+            dict(use_vndf_sampling=False),
+            dict(use_spherical_caps_vndf=True),
+            dict(use_height_correlated_g2=False),
+            dict(use_optimized_g2=False),
+            dict(use_reflectance_parameter=True),
+            dict(combine_brdfs_with_fresnel=False),
+            dict(specular=SpecularModel.PHONG),
+            dict(specular=SpecularModel.NONE),
+            dict(diffuse=DiffuseModel.NONE),
+            dict(diffuse=DiffuseModel.OREN_NAYAR),
+            dict(diffuse=DiffuseModel.DISNEY),
+            dict(diffuse=DiffuseModel.FROSTBITE)]
+
+
+def parity_configs() -> dict:
+    """Phase 17b's RenderConfigs: ``matrix``, tests/test_torch_brdf_images.py's
+    (f32 engine, AA off), ``directional``, tests/test_parity.py's (one path
+    vertex, directional NEE without the lottery, the default bf16 engine),
+    and ``stochastic``, tests/test_parity_stochastic.py's paths."""
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    return {"matrix": RenderConfig(width=MATRIX_SIZE, height=MATRIX_SIZE,
+                                   bounces=MATRIX_BOUNCES, antialias=False, skybox=False,
+                                   traversal="pallas", leaf_precision="f32",
+                                   one_shadow_ray=True, max_stack_depth=24),
+            "directional": RenderConfig(width=24, height=24, bounces=1, antialias=False,
+                                        skybox=False, stochastic_lights=False,
+                                        max_stack_depth=24),
+            "stochastic": RenderConfig(width=STOCH_SIZE, height=STOCH_SIZE,
+                                       bounces=STOCH_BOUNCES, antialias=False, skybox=False,
+                                       stochastic_lights=True, one_shadow_ray=True,
+                                       max_stack_depth=24)}
+
+
+def parity_scenes(device) -> dict:
+    """The port's builds of tests/test_parity.py's scene (``directional``: a
+    sphere over a floor, one directional light) and tests/test_parity_stochastic.py's
+    (``stochastic``: a rough, a glass and a mirror sphere over an emissive
+    floor, two point lights, a directional and a spot light), each (scene,
+    camera) on ``device``; tests/test_torch_oracle.py pins their tables to
+    the JAX builds byte for byte."""
+    from physically_based_ray_tracer_tpu_torch.scene.camera import Camera
+    from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
+    from physically_based_ray_tracer_tpu_torch.scene.procedural import make_quad, make_sphere
+    from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance, MeshModel,
+                                                                   build_scene)
+    sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=10, lon=14),
+                                base_color=(0.8, 0.3, 0.2), roughness=0.5, metalness=0.2)
+    floor = MeshModel.from_fat(
+        make_quad([-5, -1.2, -5], [-5, -1.2, 5], [5, -1.2, 5], [5, -1.2, -5]),
+        base_color=(0.5, 0.6, 0.7), roughness=0.9)
+    lights = LightSet.make(dir_pos=[[4, 6, 3]], dir_color=[[2.0, 1.9, 1.7]], device=device)
+    directional, _ = build_scene([sphere, floor], [Instance(0), Instance(1)], lights,
+                                 device=device)
+    sphere = MeshModel.from_fat(make_sphere(radius=1.0, lat=8, lon=12),
+                                base_color=(0.8, 0.3, 0.2), roughness=0.5, metalness=0.2)
+    glass = MeshModel.from_fat(make_sphere(radius=0.5, lat=8, lon=12),
+                               base_color=(0.9, 0.9, 0.9), roughness=0.1,
+                               transmissivness=1.0)
+    mirror = MeshModel.from_fat(make_sphere(radius=0.5, lat=8, lon=12),
+                                base_color=(0.9, 0.9, 0.9), roughness=0.0, metalness=1.0)
+    floor = MeshModel.from_fat(
+        make_quad([-6, -1.2, -6], [-6, -1.2, 6], [6, -1.2, 6], [6, -1.2, -6]),
+        base_color=(0.5, 0.6, 0.7), roughness=0.9, emissive=(0.01, 0.01, 0.01))
+    lights = LightSet.make(
+        point_pos=[[2.0, 3.0, 2.0], [-2.0, 2.0, 1.0]],
+        point_color=[[6.0, 5.0, 4.0], [3.0, 3.0, 5.0]],
+        dir_pos=[[4.0, 6.0, 3.0]], dir_color=[[1.5, 1.4, 1.2]],
+        spot_pos=[[0.0, 4.0, 0.0]], spot_color=[[8.0, 8.0, 8.0]],
+        spot_rot=[[0.0, -1.0, 0.0]], device=device)
+    insts = [Instance(0), Instance(1, position=(-1.4, -0.6, 0.9)),
+             Instance(2, position=(1.5, -0.5, 0.7)), Instance(3)]
+    stochastic, _ = build_scene([sphere, glass, mirror, floor], insts, lights,
+                                device=device)
+    return {"directional": (directional, Camera.make(pos=(0.0, 0.8, 3.5),
+                                                     target=(0.0, 0.0, 0.0), device=device)),
+            "stochastic": (stochastic, Camera.make(pos=(0.0, 1.0, 4.0),
+                                                   target=(0.0, 0.0, 0.0), device=device))}
+
+
+def converged_fields(depth: int) -> dict:
+    """The RenderConfig fields of phase 17a's renders (the fixture's too:
+    tests/torch_converged_fixture.py renders them with JAX), for a scene
+    whose classic BVH has depth ``depth``: experiments/bf16_precision.py's
+    config."""
+    return dict(width=CONV_WIDTH, height=CONV_HEIGHT, bounces=4, antialias=True,
+                skybox=False, max_stack_depth=max(depth + 2, 32), one_shadow_ray=True)
+
+
+def image_stats(a, b) -> dict:
+    """experiments/bf16_precision.py's statistics of two images, unrounded."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d = np.abs(a - b)
+    return dict(mean_abs=float(d.mean()), p99_abs=float(np.quantile(d, 0.99)),
+                p999_abs=float(np.quantile(d, 0.999)), max_abs=float(d.max()),
+                mse=float(((a - b) ** 2).mean()),
+                pixels_over_1pct=float((d.max(-1) > 0.01).mean()))
+
+
+def _converged_path(dev, card, engines) -> dict:
+    """Phase 17a: the fixture's config rendered on the card, f32 and bf16 at
+    seed 0 and f32 at seed 1, 48 ticks each in one chunk; gates G1-G3.
+    Returns each kernel's launches over the phase."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+
+    fx = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), CONV_FIXTURE))
+    fields = json.loads(str(fx["config"]))
+    scene, cam, depth = build_bench_scene(device=dev)
+    cfg = RenderConfig(**converged_fields(depth))
+    _check(converged_fields(depth) == fields
+           and int(fx["spp"]) == CONV_SPP and int(fx["seed"]) == 0
+           and list(fx["resolution"]) == [CONV_WIDTH, CONV_HEIGHT],
+           f"the fixture's config {fields} is not this phase's")
+    # one chunk: the port's batches are the JAX run's
+    _check(cfg.n_pixels <= cfg.chunk_pixels, "the converged frame takes more than one chunk")
+    print(f"fixture {CONV_FIXTURE}: JAX {fx['jax_version']}, config {json.dumps(fields)}",
+          flush=True)
+    jax_f32, jax_bf16 = fx["f32"], fx["bf16"]
+    for c in engines:
+        c.reset_counts()
+    imgs, ms = {}, {}
+    for tag, lp, seed in (("f32", "f32", 0), ("bf16", "bf16", 0), ("f32_seed1", "f32", 1)):
+        r = Renderer(scene, cam, cfg.replace(leaf_precision=lp), device=dev)
+        t0 = time.perf_counter()
+        for _ in range(CONV_SPP):
+            img = r.tick(seed)
+        torch.cuda.synchronize()
+        ms[tag] = (time.perf_counter() - t0) * 1e3 / CONV_SPP
+        _check(img.shape == jax_f32.shape and bool(np.isfinite(img).all()),
+               f"converged {tag} image not finite or of the wrong shape")
+        imgs[tag] = img
+        print(f"converged {tag} (seed {seed}): {CONV_SPP} ticks, {ms[tag]:.2f} ms a tick, "
+              f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
+    launches = _launch_counts(engines)
+    plain = {c.__name__.rsplit(".", 1)[1]: dict(c.PLAIN_CALLS) for c in engines}
+    stats = {"port_f32_vs_jax_f32": image_stats(imgs["f32"], jax_f32),
+             "port_bf16_vs_jax_f32": image_stats(imgs["bf16"], jax_f32),
+             "port_bf16_vs_jax_bf16": image_stats(imgs["bf16"], jax_bf16),
+             "port_f32_seed1_vs_jax_f32": image_stats(imgs["f32_seed1"], jax_f32),
+             "jax_bf16_vs_jax_f32": image_stats(jax_bf16, jax_f32)}
+    for name, s in stats.items():
+        ratio = {k: s[k] / CONV_FLOOR[k] for k in s}
+        print(f"converged {name}: {json.dumps(s)}; / noise floor {json.dumps(ratio)}",
+              flush=True)
+    for tag in ("f32", "bf16"):
+        d = np.abs(imgs[tag] - jax_f32).max(axis=-1).ravel()
+        worst = [(int(i // CONV_WIDTH), int(i % CONV_WIDTH), float(d[i]))
+                 for i in np.argsort(d)[::-1][:5]]
+        print(f"converged port_{tag}_vs_jax_f32: worst pixels (y, x, max abs) {worst}",
+              flush=True)
+    print(f"converged path: launches {json.dumps(launches)}, plain-version calls "
+          f"{json.dumps(plain)}", flush=True)
+    _check(all(launches[m]["closest"] > 0 and launches[m]["any"] > 0
+               for m in ("trace", "trace_bf16")), "the converged path did not launch B1 and B2")
+    _check(not any(sum(p.values()) for p in plain.values()),
+           "the converged path called a plain version")
+    g1 = stats["port_f32_vs_jax_f32"]
+    g2 = stats["port_bf16_vs_jax_f32"]
+    g3 = stats["port_f32_seed1_vs_jax_f32"]["mse"] / CONV_FLOOR["mse"]
+    _check(g1["mse"] <= CONV_JAX_BF16_VS_F32_MSE,
+           f"G1: MSE(port f32, JAX f32) {g1['mse']:.4e} > {CONV_JAX_BF16_VS_F32_MSE}")
+    _check(g2["mse"] <= 2 * CONV_JAX_BF16_VS_F32_MSE,
+           f"G2: MSE(port bf16, JAX f32) {g2['mse']:.4e} > {2 * CONV_JAX_BF16_VS_F32_MSE}")
+    _check(all(g2[k] < CONV_FLOOR[k] for k in ("mean_abs", "p99_abs", "p999_abs")),
+           "G2: port bf16 vs JAX f32 not below the noise floor's mean, p99, p999 abs")
+    _check(CONV_FLOOR_BAND[0] <= g3 <= CONV_FLOOR_BAND[1],
+           f"G3: MSE(port f32 seed 1, JAX f32 seed 0) is {g3:.4f} x the noise floor")
+    print(f"G1 {g1['mse']:.6e} <= {CONV_JAX_BF16_VS_F32_MSE}; G2 {g2['mse']:.6e} <= "
+          f"{2 * CONV_JAX_BF16_VS_F32_MSE}; G3 {g3:.4f} x floor in {CONV_FLOOR_BAND}",
+          flush=True)
+    return launches
+
+
+def _parity_on_card(dev, card, engines) -> None:
+    """Phase 17b: the BRDFConfig matrix's images and the oracle scenes' on
+    the card (kernels) and on the CPU (plain versions), same key."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch import BRDFConfig, RenderMode
+    from physically_based_ray_tracer_tpu_torch.render.integrator import trace_paths
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer
+    from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays
+
+    scenes, cfgs = parity_scenes("cpu"), parity_configs()
+
+    def agree(label, got, want):
+        close = np.isclose(got, want, rtol=2e-4, atol=2e-5).all(axis=-1)
+        print(f"{label}: card vs CPU {close.mean() * 100:.3f}% pixels allclose "
+              f"({int((~close).sum())} differ), mean abs diff "
+              f"{float(np.abs(got - want).mean()):.3e}", flush=True)
+        _check(close.mean() >= PARITY_CLOSE, f"{label}: card and CPU images disagree")
+
+    def both(scene, cam, cfg):
+        return [Renderer(scene, cam, cfg, device=d).tick(0) for d in (dev, "cpu")]
+
+    for c in engines:
+        c.reset_counts()
+    scene, cam = scenes["stochastic"]
+    for kw in [{}] + brdf_matrix():
+        got, want = both(scene, cam, cfgs["matrix"].replace(brdf=BRDFConfig(**kw)))
+        name = "-".join(f"{k}={getattr(v, 'name', v)}" for k, v in kw.items()) or "default"
+        agree(f"BRDFConfig {name}", got, want)
+    scene, cam = scenes["directional"]
+    for mode in (RenderMode.BRDF, RenderMode.BASECOLOR):
+        cfg = cfgs["directional"].replace(rendering_mode=mode,
+                                          gamma_corrected=mode == RenderMode.BRDF)
+        agree(f"directional {mode.name}", *both(scene, cam, cfg))
+    scene, cam = scenes["stochastic"]
+    cfg = cfgs["stochastic"]
+    rad = []
+    for d in (dev, "cpu"):
+        ids = torch.arange(STOCH_SIZE * STOCH_SIZE, dtype=torch.int32, device=d)
+        sc, cm = scene.to(d), cam.to(d)
+        o, dr = primary_rays(cm, (ids % STOCH_SIZE).float(), (ids // STOCH_SIZE).float(),
+                             STOCH_SIZE, STOCH_SIZE)
+        rad.append(trace_paths(sc, cfg, o, dr, ids, STOCH_KEY, 0)[0].cpu().numpy())
+    agree("stochastic paths", *rad)
+    launches = _launch_counts(engines)
+    print(f"matrix and oracle scenes: launches {json.dumps(launches)}", flush=True)
+    _check(all(launches[m]["closest"] > 0 and launches[m]["any"] > 0
+               for m in ("trace", "trace_bf16")), "phase 17b did not launch B1 and B2")
+
+
 def main() -> int:
     import torch
 
@@ -3116,6 +3409,16 @@ def main() -> int:
         par = _parallel_path(dev, card, cfg, engines, scene2, cam, handle2, sets)
     print(f"parallel path: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
 
+    # 17. the main path's parity gates: the converged bench image against
+    # the JAX package's stored renders; the BRDFConfig matrix and the
+    # oracle scenes, card vs CPU
+    with _Phase("parity gates") as ph:
+        with _Phase("converged mean"):
+            conv = _converged_path(dev, card, engines)
+        with _Phase("BRDFConfig matrix and oracle scenes, card vs CPU"):
+            _parity_on_card(dev, card, engines)
+    print(f"parity gates: {time.perf_counter() - ph.t0:.1f} s [{card}]", flush=True)
+
     # 14. result lines
     def err(eng, mode):
         if eng == "bf16":
@@ -3143,6 +3446,10 @@ def main() -> int:
         over the ranks."""
         return par["launches"].get(module, {}).get(mode, 0)
 
+    def converged_launches(module, mode):
+        """The kernel's launches over phase 17a (the converged renders)."""
+        return conv.get(module, {}).get(mode, 0)
+
     kernels = []
     for eng, launches in (("f32", launches32), ("bf16", launches16),
                           ("rows", launches_rows)):
@@ -3159,7 +3466,9 @@ def main() -> int:
                             "dynamic_path_launches": dyn_launches(MODULE_OF[eng], mode),
                             "diff_path_launches": diff_launches(MODULE_OF[eng], mode),
                             "classic_path_launches": classic_launches(MODULE_OF[eng], mode),
-                            "parallel_path_launches": parallel_launches(MODULE_OF[eng], mode)})
+                            "parallel_path_launches": parallel_launches(MODULE_OF[eng], mode),
+                            "converged_path_launches": converged_launches(MODULE_OF[eng],
+                                                                          mode)})
             if eng == "rows":
                 # diagnostic: the bound of the work B3's schedule does, and
                 # the warps that left the shared walk
@@ -3184,7 +3493,9 @@ def main() -> int:
                  "classic_path_launches": classic_launches(name, "scan" if name == "wave_scan"
                                                            else mode),
                  "parallel_path_launches": parallel_launches(name, "scan" if name == "wave_scan"
-                                                             else mode)}
+                                                             else mode),
+                 "converged_path_launches": converged_launches(name, "scan"
+                                                               if name == "wave_scan" else mode)}
         if name == "wave_scan":
             entry["port_only"] = True      # replaces XLA code, not a TPU kernel
         kernels.append(entry)
@@ -3201,6 +3512,7 @@ def main() -> int:
                         "diff_path_launches": diff_launches("wave_level", mode),
                         "classic_path_launches": classic_launches("wave_level", mode),
                         "parallel_path_launches": parallel_launches("wave_level", mode),
+                        "converged_path_launches": converged_launches("wave_level", mode),
                         "registers": max((u["registers"] for u in level_use.values()),
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())
