@@ -20,6 +20,7 @@ from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, apply_params,
                                                              clone_params, render_color,
                                                              trainable)
 from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
+from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate
 
 
 def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimizer,
@@ -35,14 +36,20 @@ def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimi
     where it got none), in ``param_items`` order, goes into one flat
     all_reduce and is divided by the group's size (``lax.pmean`` of the
     gradients); the loss is averaged the same way. Every rank then takes
-    the same Adam step."""
+    the same Adam step.
 
+    A step is a ``pbrt.step`` span, with ``pbrt.forward`` (the parameters
+    applied, the render and the loss) and ``pbrt.backward`` inside."""
+
+    @annotate("pbrt.step")
     def step(params, key, sample, pixel_ids, target):
         optimizer.zero_grad(set_to_none=True)
-        s, c = apply_params(scene, cam, params)
-        color = render_color(s, c, cfg, key, sample, pixel_ids)
-        loss = torch.mean((color - target) ** 2)
-        loss.backward()
+        with annotate("pbrt.forward"):
+            s, c = apply_params(scene, cam, params)
+            color = render_color(s, c, cfg, key, sample, pixel_ids)
+            loss = torch.mean((color - target) ** 2)
+        with annotate("pbrt.backward"):
+            loss.backward()
         loss = loss.detach()
         if axis_name is not None:
             mesh = lookup(axis_name)

@@ -7,7 +7,9 @@ The wrappers take rays on one device and dispatch on it:
     same tables, with the same arithmetic.
 There is no fallback between the two. ``LAUNCHES`` counts kernel launches
 and ``PLAIN_CALLS`` counts calls of the plain version, so that a run can show
-which of them it went through.
+which of them it went through. Every call of either is counted in the
+program's live-lane counter (``utils/profiling.count_lanes``) while a span
+is open.
 
 ``sorted_closest_dense`` / ``sorted_any_dense`` co-sort the rays by a
 Morton key first (coherent warps; ``morton_key``, octant-major unless
@@ -27,6 +29,7 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import (ABSENT,
                                                              DenseBVH)
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
+from physically_based_ray_tracer_tpu_torch.utils.profiling import count_lanes
 
 LAUNCHES = {"closest": 0, "any": 0}
 PLAIN_CALLS = {"closest": 0, "any": 0}
@@ -358,6 +361,7 @@ def brute_force_tables(dbvh: DenseBVH, o, d, t_max, closest: bool):
 
 def _traverse(dbvh: DenseBVH, o, d, t_max, closest: bool):
     _check_rays(dbvh, o, d, t_max)
+    count_lanes(t_max)
     if o.device.type == "cuda":
         return _launch(dbvh, o, d, t_max, closest)
     if o.device.type == "cpu":

@@ -23,7 +23,8 @@ The wrappers dispatch on the rays' device, as ``ops/trace.py`` does:
   * CPU tensors run ``plain_traverse_bf16``, a brute force over the same
     tables with the kernel's bf16 arithmetic (each bf16 operation computed
     in f32 and rounded to bf16, as both frameworks do on the CPU).
-``LAUNCHES`` / ``PLAIN_CALLS`` count the two.
+``LAUNCHES`` / ``PLAIN_CALLS`` count the two; both count in the program's
+live-lane counter (``utils/profiling.count_lanes``) while a span is open.
 
 The kernel gives ray ``i`` of a launch the sweep lane ``i mod 128``, the
 lane the TPU tile gives it, so its winner keys decode exactly as the
@@ -47,6 +48,7 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import (ABSENT, BF_ROWS,
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
 from physically_based_ray_tracer_tpu_torch.ops import trace
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
+from physically_based_ray_tracer_tpu_torch.utils.profiling import count_lanes, host_read
 
 APRON = 0.02            # barycentric accept apron (see _bf16_mt)
 GLO_SMEM_LIMIT = 8192   # the reference's group-count limit of the bf16 engine
@@ -632,6 +634,7 @@ def _call_bf16(dbvh: DenseBVH, o, d, t_max, closest: bool):
     """Kernel B2 (CUDA) or its plain version (CPU). Closest: (t, gk, inst);
     occlusion: (cert, unc)."""
     _check_rays(dbvh, o, d, t_max)
+    count_lanes(t_max)
     if o.device.type == "cuda":
         return _launch(dbvh, o, d, t_max, closest)
     if o.device.type == "cpu":
@@ -760,7 +763,7 @@ def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted):
     order given, so that lanes without a retest leave at the root together;
     other rays are co-sorted first."""
     need = unc & ~cert
-    if not bool(need.any()):
+    if not host_read("retest", need.any()):
         return cert
     tm = torch.where(need, t_max, torch.zeros_like(t_max))
     if presorted:

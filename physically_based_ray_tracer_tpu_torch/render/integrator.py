@@ -50,6 +50,12 @@ rank of that axis's process group before the closest-hit pass and routes
 their results home after the shading block (``parallel/resharding.py``);
 the bounce gate is then off, so that every rank joins every bounce's
 collectives.
+
+Tracing (``utils/profiling.py``, on while a torch profiler records): each
+bounce's closest-hit pass is a ``pbrt.closest`` span and its post-hit block
+a ``pbrt.shade`` span (both with the bounce's ``depth``), each occlusion
+pass a ``pbrt.occlusion`` span; the gates read the device through
+``host_read``.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from physically_based_ray_tracer_tpu_torch.scene.material import (
 from physically_based_ray_tracer_tpu_torch.utils import rng
 from physically_based_ray_tracer_tpu_torch.utils.math import (dot, reflect,
                                                               refract)
+from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate, host_read
 from physically_based_ray_tracer_tpu_torch.utils.rng import Purpose
 
 
@@ -171,27 +178,29 @@ def _wave_kw(cfg: RenderConfig) -> dict:
 
 
 def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
-    """Occlusion of each ray; the rays and t_max are detached, as in _closest."""
-    o, d, t_max = _detached(o, d, t_max)
-    sort = sort and cfg.sort_rays
-    if cfg.traversal in ("wave", "packet"):
-        tp = traverse_packet
-        fn, kw = ((tp.intersect_any_wave, _wave_kw(cfg)) if cfg.traversal == "wave"
-                  else (tp.intersect_any_packet, _packet_kw(cfg)))
-        if sort:
-            return tp.sorted_any(fn, scene.bvh, o, d, t_max, **kw)
-        return fn(scene.bvh, o, d, t_max, **kw)
-    if cfg.traversal == "lane":
-        return traverse.intersect_any(scene.bvh, o, d, t_max,
-                                      stack_depth=cfg.max_stack_depth,
-                                      leaf_size=cfg.leaf_size)
-    if cfg.traversal == "pallas_rows":
-        fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
-    elif _use_bf16(cfg, scene.dense):
-        fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
-    else:
-        fn = trace.sorted_any_dense if sort else trace.intersect_any_dense
-    return fn(scene.dense, o, d, t_max)
+    """Occlusion of each ray; the rays and t_max are detached, as in
+    _closest. Every call is a ``pbrt.occlusion`` span."""
+    with annotate("pbrt.occlusion"):
+        o, d, t_max = _detached(o, d, t_max)
+        sort = sort and cfg.sort_rays
+        if cfg.traversal in ("wave", "packet"):
+            tp = traverse_packet
+            fn, kw = ((tp.intersect_any_wave, _wave_kw(cfg)) if cfg.traversal == "wave"
+                      else (tp.intersect_any_packet, _packet_kw(cfg)))
+            if sort:
+                return tp.sorted_any(fn, scene.bvh, o, d, t_max, **kw)
+            return fn(scene.bvh, o, d, t_max, **kw)
+        if cfg.traversal == "lane":
+            return traverse.intersect_any(scene.bvh, o, d, t_max,
+                                          stack_depth=cfg.max_stack_depth,
+                                          leaf_size=cfg.leaf_size)
+        if cfg.traversal == "pallas_rows":
+            fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
+        elif _use_bf16(cfg, scene.dense):
+            fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
+        else:
+            fn = trace.sorted_any_dense if sort else trace.intersect_any_dense
+        return fn(scene.dense, o, d, t_max)
 
 
 def _light_type_weights(lights):
@@ -499,9 +508,9 @@ def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
     miss bookkeeping, else the shading block. ``alive_known``: the caller
     has already seen a live lane (the full-width slice after the bounce
     gate), so that host check is not repeated."""
-    if not alive_known and not bool(lanes["alive_in"].any()):
+    if not alive_known and not host_read("alive_in", lanes["alive_in"].any()):
         return _dead_skip(lanes, depth)
-    if not bool(lanes["found0"].any()):
+    if not host_read("found0", lanes["found0"].any()):
         return _skip_shade(scene, cfg, lanes, depth)
     return _shade(scene, cfg, packs, lanes, key, sample, depth)
 
@@ -547,7 +556,7 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
         # its predicate is the rank's own, and a rank that skipped the
         # bounce would miss its collectives while the others wait in them.
         # The post-hit gates in _gated hold no collective and stay.
-        if not collect_debug and mesh is None and not bool(alive.any()):
+        if not collect_debug and mesh is None and not host_read("bounce_gate", alive.any()):
             continue
         pid = pixel_id
         if mesh is not None:
@@ -563,25 +572,27 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
         n = W // S
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
-        hit = _closest(scene, cfg, o, d, t_init, sort=True, refine="fast")
-        lanes = dict(o=o, d=d, radiance=radiance, throughput=throughput,
-                     alive=alive, primary_t=primary_t, hit_t=hit.t,
-                     prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
-                     alive_in=alive, pixel_id=pid)
-        if collect_debug:
-            rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst)
-            out = _shade(scene, cfg, packs, lanes, key, sample, depth, debug=rec)
-            records.append(dict(rec, throughput_out=out["throughput"],
-                                alive_out=out["alive"], next_dir=out["d"]))
-        elif S == 1:
-            out = _gated(scene, cfg, packs, lanes, key, sample, depth,
-                         alive_known=mesh is None)
-        else:
-            parts = [_gated(scene, cfg, packs,
-                            {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
-                            key, sample, depth)
-                     for i in range(S)]
-            out = {k: torch.cat([p[k] for p in parts]) for k in _CARRY}
+        with annotate("pbrt.closest", depth=depth):
+            hit = _closest(scene, cfg, o, d, t_init, sort=True, refine="fast")
+        with annotate("pbrt.shade", depth=depth):
+            lanes = dict(o=o, d=d, radiance=radiance, throughput=throughput,
+                         alive=alive, primary_t=primary_t, hit_t=hit.t,
+                         prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
+                         alive_in=alive, pixel_id=pid)
+            if collect_debug:
+                rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst)
+                out = _shade(scene, cfg, packs, lanes, key, sample, depth, debug=rec)
+                records.append(dict(rec, throughput_out=out["throughput"],
+                                    alive_out=out["alive"], next_dir=out["d"]))
+            elif S == 1:
+                out = _gated(scene, cfg, packs, lanes, key, sample, depth,
+                             alive_known=mesh is None)
+            else:
+                parts = [_gated(scene, cfg, packs,
+                                {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
+                                key, sample, depth)
+                         for i in range(S)]
+                out = {k: torch.cat([p[k] for p in parts]) for k in _CARRY}
         if mesh is not None:
             out = ring_restore({k: out[k] for k in _CARRY}, meta, mesh)
         o, d, radiance, throughput, alive, primary_t = (out[k] for k in _CARRY)

@@ -11,6 +11,8 @@ there is no compiled frame function.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -21,6 +23,7 @@ from physically_based_ray_tracer_tpu_torch.render.integrator import (
     check_supported, render_sample)
 from physically_based_ray_tracer_tpu_torch.utils import image as image_utils
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate, host_read
 from physically_based_ray_tracer_tpu_torch.utils.timer import (DeviceTimer, FrameStats,
                                                                ray_count)
 
@@ -108,7 +111,9 @@ class Renderer:
     ``jax.random.key(key)``; images are pixel-for-pixel comparable.
     ``stats`` holds the last tick's time (``DeviceTimer``: the device's
     queue drained at both ends, the film fetched to the host inside) and
-    its ray count (``utils.timer.ray_count``)."""
+    its ray count (``utils.timer.ray_count``). A tick is a ``pbrt.tick``
+    span; its tail after the last chunk (the film's update, the fetch to the
+    host, the display image) a ``pbrt.film`` span."""
 
     def __init__(self, scene, camera, config: RenderConfig,
                  device=DEFAULT_DEVICE):
@@ -135,15 +140,19 @@ class Renderer:
         """Render one frame (``samples_per_pixel`` samples/pixel [+AA]),
         update accumulation, and return the display image (H, W, 3) float
         in [0, 1]."""
-        with DeviceTimer(self.device) as t:
-            self.film, avg = frame_fn(self.scene, self.camera, self.film, key,
-                                      self.sample, self._pixel_ids,
-                                      cfg=self.config)
-            avg = avg.cpu().numpy()
-        self.sample += 1
-        self.stats.update(t.ms, ray_count(self.config, self.config.n_pixels,
-                                          n_point_lights=self.scene.lights.n_point))
-        return self._assemble(avg)
+        with annotate("pbrt.tick"), contextlib.ExitStack() as timed:
+            timer = timed.enter_context(DeviceTimer(self.device))
+            color, primary_t = render_chunked(self.scene, self.camera, self.config, key,
+                                              self.sample, self._pixel_ids)
+            with annotate("pbrt.film"):
+                self.film, avg = film_mod.update(self.film, color, primary_t, self.config)
+                avg = host_read("film_fetch", avg)
+                timed.close()           # the tick's time ends with the fetch
+                self.sample += 1
+                self.stats.update(timer.ms, ray_count(
+                    self.config, self.config.n_pixels,
+                    n_point_lights=self.scene.lights.n_point))
+                return self._assemble(avg)
 
     def _assemble(self, avg_flat: np.ndarray) -> np.ndarray:
         """Scatter film-order samples back into raster order, post-process
@@ -153,12 +162,12 @@ class Renderer:
         img = img_flat.reshape(self.config.height, self.config.width, 3)
         if self.config.post_processed:
             pp = POST_PRESETS.get(self.config.post_preset, POST_PRESETS[2])
-            img = post_process(
+            img = host_read("post_fetch", post_process(
                 torch.from_numpy(img).to(self.device),
                 aberration_intensity=pp["aberration_intensity"],
                 vignette_intensity=pp["vignette_intensity"],
                 vignette_radius=pp["vignette_radius"],
-                grading=pp["grading"]).cpu().numpy()
+                grading=pp["grading"]))
         return np.clip(img, 0.0, 1.0)
 
     def render(self, samples: int = 1, seed: int = 0) -> np.ndarray:

@@ -59,17 +59,6 @@ def ray_count(config, n_pixels: int, spp: int = 1,
     return int(vertices + shadow)
 
 
-def live_ray_count(config, n_pixels: int, ext_fractions, shadow_fractions,
-                   spp: int = 1) -> int:
-    """Expected rays traced per frame from measured per-bounce live-lane
-    fractions: ``ext_fractions[b]`` of lanes trace a bounce-``b`` extension
-    ray, ``shadow_fractions[b]`` a live NEE shadow ray."""
-    lanes = n_pixels * spp * (2 if config.antialias else 1)
-    ext = sum(ext_fractions)
-    shadow = sum(shadow_fractions) if config.lighted else 0.0
-    return int(lanes * (ext + shadow))
-
-
 def _sync(device) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":

@@ -10,14 +10,15 @@ exact f32 engine, then with the row-parallel exact engine
 (``traversal="pallas_rows"``), then with the wave engine (``traversal="wave"``, on the scene's classic BVH): for
 each, once to warm up, 3 times unprofiled (the median wall time: run it in
 two checkouts in turns to compare frames), then once under
-``torch.profiler``. Prints per engine the frame's wall times, the summed device time of all kernels and of the
-traversal kernels (B2 ``traverse_bf16_kernel``, B1 ``traverse_kernel``, B3
-``traverse_rows_kernel``, B4 ``leaf_mt_kernel``, the wave engine's
-``wave_scan_kernel`` and its fused level ``wave_level_kernel``) with their
-launch counts, the waves and levels the wave engine ran, the device-busy
-share of the wall time and the kernel launch count, and the top 30
-operators by device time. It also runs from an older checkout of the port
-(copy it there), whose wave engine may lack the fused level.
+``torch.profiler``. Prints per engine the frame's wall times, the waves and
+levels the wave engine ran, the program's spans of the profiled frame
+(``utils/profiling.spans``: per span name its count, wall and self time,
+host reads and the time blocked in them, traversal lanes launched and
+live), and the top 30 operators by device time. The device's busy share
+and the traversal kernels' times are the benchmark's
+(``python3 -m pbrt_bench.run ... --trace 1``). It also runs from an older
+checkout of the port (copy it there), which may lack the spans or the
+wave engine's fused level.
 
 ENGINE ``grad`` profiles the bench frame's gradient instead
 (``chip_smoke.py`` phase 13a's problem: the L2 loss of the default bf16
@@ -25,8 +26,8 @@ frame at perturbed parameters, each chunk's backward before the next
 chunk's forward): once to warm up, then once profiled with the forward
 passes only (each chunk's graph dropped) and once profiled with the
 backward passes too. Prints the device time of each, their difference (the
-backward's), the peak memory, and the top 30 operators of the whole pass by
-device time.
+backward's), the peak memory, the program's spans of the whole pass and the
+top 30 operators of the whole pass by device time.
 """
 
 from __future__ import annotations
@@ -36,6 +37,40 @@ import statistics
 import subprocess
 import sys
 import time
+
+
+def span_table(recs: list[dict]) -> str:
+    """Per span name (in first-seen order): count, wall and self ms (self:
+    less the wall time of its children), host reads and ms blocked in them,
+    traversal lanes launched and live."""
+    rows: dict[str, list] = {}
+    for r in recs:
+        row = rows.setdefault(r["name"], [0, 0, 0, 0, 0, 0, 0])
+        wall = r["end_ns"] - r["start_ns"]
+        row[0] += 1
+        row[1] += wall
+        row[2] += wall
+        row[3:] = [row[3] + r["reads"], row[4] + r["wait_ns"], row[5] + r["lanes"],
+                   row[6] + r["live"]]
+        if r["parent"] >= 0:
+            rows[recs[r["parent"]]["name"]][2] -= wall
+    out = [f"{'span':<16}{'count':>7}{'wall ms':>11}{'self ms':>11}{'reads':>7}"
+           f"{'wait ms':>10}{'lanes':>12}{'live':>12}"]
+    for name, (n, wall, own, reads, wait, lanes, live) in rows.items():
+        out.append(f"{name:<16}{n:>7}{wall / 1e6:>11.2f}{own / 1e6:>11.2f}{reads:>7}"
+                   f"{wait / 1e6:>10.2f}{lanes:>12}{live:>12}")
+    return "\n".join(out)
+
+
+def _spans():
+    """The program's spans since the last reset, and a reset; an older
+    checkout without spans gives none."""
+    from physically_based_ray_tracer_tpu_torch.utils import profiling
+    if not hasattr(profiling, "spans"):
+        return []
+    recs = profiling.spans()
+    profiling.reset()
+    return recs
 
 
 def _profile(label, scene, cam, cfg, dev, card):
@@ -54,41 +89,21 @@ def _profile(label, scene, cam, cfg, dev, card):
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
     traverse_packet.reset_counts()
+    _spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r.tick(0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels: their own events where the profiler lists them, else
-    # the kernels attached to the CPU operators that launched them
-    evs = prof.events()
-    kernels = [(e.name, e.device_time_total) for e in evs
-               if e.device_type.name != "CPU"]
-    if not kernels:
-        kernels = [(k.name, k.duration) for e in evs for k in e.kernels]
-    dev_ms = sum(t for _, t in kernels) / 1e3
-    b2 = [t for n, t in kernels if "traverse_bf16_kernel" in n]
-    b1 = [t for n, t in kernels if "traverse_kernel" in n and "bf16" not in n]
-    b3 = [t for n, t in kernels if "traverse_rows_kernel" in n]
-    b4 = [t for n, t in kernels if "leaf_mt_kernel" in n]
-    scan = [t for n, t in kernels if "wave_scan_kernel" in n]
-    level = [t for n, t in kernels if "wave_level_kernel" in n]
     # the wave engine's counts (an older checkout counts waves on the host only)
     waves = (traverse_packet.collect_waves() if hasattr(traverse_packet, "collect_waves")
              else dict(traverse_packet.WAVES))
     levels = dict(getattr(traverse_packet, "LEVELS", {}))
     print(f"card: {card}")
     print(f"frame 1280x720 {label}: unprofiled wall median {statistics.median(plain_ms):.2f} "
-          f"ms over {[round(x, 2) for x in plain_ms]}")
-    print(f"frame 1280x720 {label}: wall {wall_ms:.2f} ms, device "
-          f"kernels {dev_ms:.2f} ms ({len(kernels)} launches), B2 {sum(b2) / 1e3:.2f} ms "
-          f"({len(b2)} launches), B1 {sum(b1) / 1e3:.2f} ms ({len(b1)} launches), "
-          f"B3 {sum(b3) / 1e3:.2f} ms ({len(b3)} launches), "
-          f"B4 {sum(b4) / 1e3:.2f} ms ({len(b4)} launches), "
-          f"scan {sum(scan) / 1e3:.2f} ms ({len(scan)} launches), "
-          f"wave_level {sum(level) / 1e3:.2f} ms ({len(level)} launches), "
-          f"waves {waves}, levels {levels}, "
-          f"device busy {100 * dev_ms / wall_ms:.1f}%")
+          f"ms over {[round(x, 2) for x in plain_ms]}; profiled wall {wall_ms:.2f} ms, "
+          f"waves {waves}, levels {levels}")
+    print(span_table(_spans()))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
 
@@ -120,6 +135,7 @@ def _profile_grad(cfg, dev, card):
         torch.cuda.synchronize()
         fwd_wall = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
+    _spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as both:
         t0 = time.perf_counter()
         _frame_grad(scene, cam, cfg, params, target, chunk)
@@ -132,8 +148,9 @@ def _profile_grad(cfg, dev, card):
           f"only: wall {fwd_wall:.2f} ms, device kernels {f_ms:.2f} ms ({f_n} launches); "
           f"forward + backward: wall {both_wall:.2f} ms, device kernels {b_ms:.2f} ms "
           f"({b_n} launches); backward's device time {b_ms - f_ms:.2f} ms "
-          f"({b_n - f_n} launches); device busy {100 * b_ms / both_wall:.1f}%; peak memory "
+          f"({b_n - f_n} launches); peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    print(span_table(_spans()))
     print(both.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
 

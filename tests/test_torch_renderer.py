@@ -173,9 +173,6 @@ def test_ray_count_matches_jax(kw):
         for spp in (1, 3):
             assert (ttimer.ray_count(port_config(cfg), cfg.n_pixels, spp, n_point)
                     == jtimer.ray_count(cfg, cfg.n_pixels, spp, n_point))
-    fr = ([1.0, 0.6, 0.3], [0.9, 0.5, 0.2])
-    assert (ttimer.live_ray_count(port_config(cfg), 4096, *fr, spp=2)
-            == jtimer.live_ray_count(cfg, 4096, *fr, spp=2))
 
 
 def test_frame_stats_and_timers():
