@@ -6,21 +6,23 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package. It builds the
-port's six kernels, ``csrc/traverse_f32.cu`` (B1, the exact f32 engine),
-``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the ``RenderConfig``
+port's seven kernel sources, ``csrc/traverse_f32.cu`` (B1, the exact f32
+engine), ``csrc/traverse_bf16.cu`` (B2, the bf16 engine, the ``RenderConfig``
 default), ``csrc/traverse_rows.cu`` (B3, the row-parallel exact engine,
 ``traversal="pallas_rows"``), ``csrc/leaf_mt.cu`` (B4, the wave engine's
 dense leaf phase), ``csrc/wave_scan.cu`` (the wave engine's node scan, a
-port-only kernel) and ``csrc/wave_level.cu`` (port-only: one launch per
+port-only kernel), ``csrc/wave_level.cu`` (port-only: one launch per
 cascade level running the scan, B4's function and the tile update in a
-loop on the card; the wave engine's ``dense="mt"`` path), with one
-``nvcc`` each, started together (into ``build/torch_kernels/``), then:
+loop on the card; the wave engine's ``dense="mt"`` path) and
+``csrc/take_rows.cu`` (port-only: the backward of the row gather of the
+differentiable path, ``ops/take_rows.py``), with one ``nvcc`` each,
+started together (into ``build/torch_kernels/``), then:
 
 1. probe: prints the toolchain, the card (nvidia-smi name, power limit) and
    the kernel build times and ptxas logs, and again, per kernel function of
-   B1, B2, B3 and the fused level, ptxas's lines on its registers, stack
-   frame (local memory) and spill bytes (demangled by ``c++filt`` where the
-   host has it); the fused level's four instantiations must use <= 64
+   B1, B2, B3, the fused level and take_rows, ptxas's lines on its
+   registers, stack frame (local memory) and spill bytes (demangled by
+   ``c++filt`` where the host has it); the fused level's four instantiations must use <= 64
    registers and spill nothing, and B3's (four, and its order-key kernel)
    must spill nothing;
 1b. the exhaustive check of B2's packed bf16x2 operations
@@ -204,8 +206,9 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    frame's element count, so the gradients sum to the frame's): one
    warm-up and 2 timed runs, forward and backward ms, peak memory and the
    two runs' gradient difference printed; B2 closest and any and B1's
-   retest launched, no plain version called, every group's gradient
-   finite and nonzero; then once with ``leaf_precision="f32"`` (B1 alone),
+   retest launched, no plain version called, the row gather's backward
+   kernel (``take_rows``) launched, every group's gradient finite and
+   nonzero; then once with ``leaf_precision="f32"`` (B1 alone),
    the bf16-vs-f32 gradient difference per group printed, not gated; (b)
    1,024 pixels drawn over the frame (phase 9's draw), f32 engine: the
    gradient on the card (B1) and on the CPU (plain) within
@@ -220,7 +223,14 @@ loop on the card; the wave engine's ``dense="mt"`` path), with one
    checkpointed (``diff/checkpoint.py``, under ``build/``), trained 10
    steps on, then loaded into fresh parameters and a fresh optimiser and
    trained the same 10 steps: losses within ``DIFF_RESUME_RTOL`` (1e-5)
-   relative; (d)'s losses beside them printed. Prints each kernel's
+   relative; (d)'s losses beside them printed; (f) one backward of the
+   inverse cell's step on the bench problem (65,536 pixels, f32 engine):
+   one take_rows launch per row-gather backward call, and each call's
+   cotangent reduced by the kernel twice (bit-equal) and by the plain
+   version in float64 on the CPU, within float32's reordering bound
+   element by element (``_take_rows_gate``); the heaviest call's kernel,
+   plain-version and ``index_put_(accumulate=True)`` times and byte bound
+   go to the kernels line. Prints each kernel's
    launches over the phase (B1 and B2 must launch in both modes) and the
    phase's seconds;
 15. the classic-BVH path (after 13): (a) the torch engines over the bench
@@ -380,6 +390,9 @@ KERNELS = {
     # (the scan, B4 and the tile update), not a TPU kernel
     "wave_level": (f"{PKG}/csrc/wave_level.cu",
                    "physically_based_ray_tracer_tpu/ops/traverse_packet.py:479"),
+    # port-only: the backward of the row gather (the JAX gather transposes
+    # to an XLA scatter-add; no TPU kernel)
+    "take_rows": (f"{PKG}/csrc/take_rows.cu", None),
 }
 T_RTOL = 1e-6
 PLAIN_RUNS = 2          # timed runs of each plain version (each ~1-2 s)
@@ -454,6 +467,10 @@ DIFF_CARD_VS_CPU = 1e-2
 DIFF_CKPT_STEP = 100
 DIFF_RESUME_STEPS = 10
 DIFF_RESUME_RTOL = 1e-5
+# phase 13f: one step of the inverse cell's problem (its batch, a seed of
+# its size), the row gather's backward held to float64
+STEP_SEED = 2147483901
+STEP_PIXELS = 65536
 SHARED_TABLES = ("groups", "groups_bf", "glo", "pids_c", "prim_base", "leaf_rec",
                  "groups_bf2")
 # the classic-BVH path (phase 15): the torch engines over the classic BVH;
@@ -1977,6 +1994,111 @@ def _fd_checks(dev):
     return out
 
 
+def _step_pixels(cfg, target, seed, n):
+    """The inverse cell's draw of one step: ``n`` of the frame's pixels
+    without replacement from ``seed`` (int32 ids) and their target colours."""
+    import torch
+    gen = torch.Generator(device=target.device)
+    gen.manual_seed(seed)
+    ids = torch.randperm(cfg.n_pixels, generator=gen, device=target.device)[:n]
+    return ids.to(torch.int32), target[ids]
+
+
+def _gather_step(scene, cam, cfg, start, ids, tgt, key, record=False):
+    """One forward and backward of the inverse cell's loss (the mean squared
+    error over ``ids``) from a fresh copy of ``start``: (loss, {leaf: grad},
+    calls). Where ``record``, ``calls`` holds every call of the row gather's
+    backward (``ops/take_rows.py::segment_sum``) as (cotangent, indices,
+    table rows); else it is empty."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.diff import grad as dgrad
+    from physically_based_ray_tracer_tpu_torch.ops import take_rows as tr
+
+    calls = []
+    segment_sum = tr.segment_sum
+
+    def recording(grad, idx, n_rows):
+        calls.append((grad.detach().clone(), idx.clone(), n_rows))
+        return segment_sum(grad, idx, n_rows)
+
+    if record:
+        tr.segment_sum = recording          # _TakeRows.backward finds it by name
+    try:
+        params = dgrad.clone_params(start)
+        s, c = dgrad.apply_params(scene, cam, params)
+        loss = torch.mean((dgrad.render_color(s, c, cfg, key, 0, ids) - tgt) ** 2)
+        loss.backward()
+    finally:
+        tr.segment_sum = segment_sum
+    grads = {".".join(p): v.grad.clone() for p, v in dgrad.param_items(params)
+             if v.grad is not None}
+    return loss.detach(), grads, calls
+
+
+def _take_rows_gate(scene, cam, cfg, target, start, card):
+    """Phase 13f: every call of the row gather's backward in one backward of
+    the inverse cell's step (``STEP_PIXELS`` pixels drawn from
+    ``STEP_SEED``), one kernel launch each; per call the kernel twice on the
+    same cotangent (bit-equal) against the plain version in float64 on the
+    CPU, element by element within float32's reordering bound (the tests'
+    bound: an element's sum is a tree of additions at most TILE + tiles + 1
+    deep, so its error is at most that times 2**-24 times the sum of its
+    terms' magnitudes). The heaviest call is timed with the card queued
+    ahead (no wrapper host time): the kernel's two passes with the table's
+    zeroing, the call with its sort, the plain version (``index_add_``) and
+    PyTorch's own ``index_put_(accumulate=True)`` on the card, beside its
+    byte bound. Returns the kernels line's entry."""
+    import torch
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+    from physically_based_ray_tracer_tpu_torch.ops import take_rows as tr
+
+    ids, tgt = _step_pixels(cfg, target, STEP_SEED, STEP_PIXELS)
+    launches = tr.LAUNCHES
+    _, _, calls = _gather_step(scene, cam, cfg, start, ids, tgt, STEP_SEED, record=True)
+    torch.cuda.synchronize()
+    n_launch = tr.LAUNCHES - launches
+    print(f"inverse step ({STEP_PIXELS} pixels, f32 engine): {len(calls)} take_rows "
+          f"backward calls, {n_launch} kernel launches", flush=True)
+    _check(len(calls) > 0 and n_launch == len(calls),
+           "the inverse step's row gathers did not launch one take_rows kernel a call")
+    tile = _build.load("take_rows").pbrt_take_rows_tile()
+    max_abs, worst = 0.0, 0.0
+    for grad, idx, rows in calls:
+        n, c = grad.shape
+        a = tr.segment_sum(grad, idx, rows)
+        b = tr.segment_sum(grad, idx, rows)
+        g64, i64 = grad.double().cpu(), idx.long().cpu()
+        want = tr.plain_segment_sum(g64, i64, rows)
+        bound = ((tile + -(-n // tile) + 1) * 2.0 ** -24
+                 * tr.plain_segment_sum(g64.abs(), i64, rows))
+        err = (a.cpu().double() - want).abs()
+        over = float((err - bound).max())
+        ratio = float((err / bound.clamp_min(1e-300)).max())
+        max_abs, worst = max(max_abs, float(err.max())), max(worst, ratio)
+        print(f"  take_rows {n} x {c} from {rows}: largest |kernel - float64| "
+              f"{float(err.max()):.3e}, largest error / bound {ratio:.3e}", flush=True)
+        _check(torch.equal(a, b), f"take_rows {n} x {c}: two calls differ")
+        _check(over <= 0.0, f"take_rows {n} x {c} from {rows}: {over:.3e} past float32's "
+               "reordering bound of the float64 sum")
+    grad, idx, rows = max(calls, key=lambda t: t[0].numel())
+    n, c = grad.shape
+    keys, perm = torch.sort(idx.to(torch.int32), stable=True)
+    ms = [_time_ms(fn, runs=20, ahead=True) for fn in (
+        lambda: tr.reduce_sorted(grad, keys, perm, rows),
+        lambda: tr.segment_sum(grad, idx, rows),
+        lambda: tr.plain_segment_sum(grad, idx.long(), rows),
+        lambda: torch.zeros((rows, c), device=grad.device).index_put_(
+            (idx.long(),), grad, accumulate=True))]
+    nbytes = n * c * 4 + n * (4 + 8) + rows * c * 4      # cotangent, keys, perm, table
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    print(f"take_rows {n} x {c} from {rows}: kernel {ms[0]:.4f} ms (with the sort "
+          f"{ms[1]:.4f}), plain {ms[2]:.4f}, index_put_ {ms[3]:.4f}; bound {bound_ms:.5f} ms "
+          f"({bound_ms / ms[0] * 100:.2f}%) [{card}]", flush=True)
+    return {"shape": [n, c, rows], "step_launches": n_launch, "max_abs_err": max_abs,
+            "err_over_bound": worst, "ms": ms[0], "call_ms": ms[1], "plain_ms": ms[2],
+            "library_ms": ms[3], "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
 def _diff_path(dev, card, cfg, engines):
     """Phase 13: the differentiable path. Returns the phase's report (times,
     memory, and each module's launches over the phase)."""
@@ -1988,6 +2110,7 @@ def _diff_path(dev, card, cfg, engines):
                                                                  clone_params, map_params,
                                                                  render_color, trainable)
     from physically_based_ray_tracer_tpu_torch.diff.inverse import make_train_step
+    from physically_based_ray_tracer_tpu_torch.ops import take_rows
 
     root = os.path.dirname(os.path.abspath(__file__))
     report = {}
@@ -2006,6 +2129,7 @@ def _diff_path(dev, card, cfg, engines):
     scene, cam, target, wrong, chunk = _bench_grad_problem(dev, cfg)
     n_chunks = -(-cfg.n_pixels // chunk)
     add_counts()
+    gathers = take_rows.LAUNCHES
     runs = []
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(3):                 # one warm-up and 2 timed
@@ -2031,6 +2155,9 @@ def _diff_path(dev, card, cfg, engines):
            "the gradient's bf16 frame did not launch both B2 modes")
     _check(counts["trace"][0]["any"] > 0, "the gradient's bf16 frame launched no B1 retest")
     _check(plain == 0, "the gradient's frame called a plain version")
+    print(f"frame gradient (3 runs): take_rows kernel launches {take_rows.LAUNCHES - gathers}",
+          flush=True)
+    _check(take_rows.LAUNCHES > gathers, "the gradient's frame launched no take_rows kernel")
     for k, g in g16.items():
         print(f"  grad {k}: norm {float(g.norm()):.6e}, finite {bool(torch.isfinite(g).all())}",
               flush=True)
@@ -2135,6 +2262,12 @@ def _diff_path(dev, card, cfg, engines):
     _check(at == DIFF_CKPT_STEP and gap <= DIFF_RESUME_RTOL,
            f"checkpoint resume: losses {resumed} vs {straight}")
     report["train_ms_per_step"] = ms_step
+    add_counts()
+    report["take_rows_launches"] = take_rows.LAUNCHES - gathers
+
+    # (f) the row gather's backward on the inverse cell's step, against
+    # float64
+    report["take_rows"] = _take_rows_gate(scene, cam, cfg32, target, wrong, card)
     add_counts()
     report["launches"] = phase_counts
     print(f"differentiable path launches (phase total): {json.dumps(phase_counts)}",
@@ -3071,10 +3204,11 @@ def main() -> int:
                == trace_rows.STACK_CAP, "B3's stack cap differs from trace_rows.STACK_CAP")
         _check(_build.load("wave_level").pbrt_wave_level_threads() == wave_level.THREADS,
                "the fused level's block differs from wave_level.THREADS")
-        # B1's, B2's, B3's and the fused level's registers, stack frame
-        # (local memory) and spills per kernel function: ptxas's own lines,
+        # B1's, B2's, B3's, the fused level's and take_rows' registers, stack
+        # frame (local memory) and spills per kernel function: ptxas's own lines,
         # demangled where c++filt exists
-        for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "wave_level"):
+        for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "wave_level",
+                     "take_rows"):
             lines = "\n".join(ln for ln in _build.BUILD_INFO[name]["log"].splitlines()
                               if any(k in ln for k in PTXAS_KEYS))
             if shutil.which("c++filt"):
@@ -3517,6 +3651,20 @@ def main() -> int:
                                          default=None),
                         "spill_bytes": sum(u["spill_bytes"] for u in level_use.values())
                         if level_use else None})
+    # the row gather's backward (port-only), timed on the inverse step's
+    # heaviest call (phase 13f); it runs on the differentiable path alone
+    src, replaces = KERNELS["take_rows"]
+    take_use = _ptxas_usage(_build.BUILD_INFO["take_rows"]["log"])
+    kernels.append({"name": "take_rows", "route": "cuda", "source": src,
+                    "replaces": replaces, "port_only": True,
+                    "launches": diff["take_rows"]["step_launches"],
+                    **{k: v for k, v in diff["take_rows"].items() if k != "step_launches"},
+                    "library": "index_put_(accumulate=True)",
+                    "diff_path_launches": diff["take_rows_launches"],
+                    "registers": max((u["registers"] for u in take_use.values()),
+                                     default=None),
+                    "spill_bytes": sum(u["spill_bytes"] for u in take_use.values())
+                    if take_use else None})
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)

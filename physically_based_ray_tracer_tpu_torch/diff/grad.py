@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig
+from physically_based_ray_tracer_tpu_torch.ops.take_rows import take_rows
 from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
 from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
@@ -118,8 +119,8 @@ def _rebake(s, g: dict) -> dict:
             + m[:, :, 3])
     inv_t = torch.linalg.inv(lin).transpose(1, 2)                     # normal matrix
     inst = s.prim_inst.long()
-    lp, tp, np_ = lin[inst], tcol[inst], inv_t[inst]
-    lc = inv_t[torch.repeat_interleave(inst, 3)]
+    lp, tp, np_ = take_rows(lin, inst), take_rows(tcol, inst), take_rows(inv_t, inst)
+    lc = take_rows(inv_t, torch.repeat_interleave(inst, 3))
     mm = lambda a, x: torch.einsum("pab,pb->pa", a, x)
     return dict(tri_v0=mm(lp, s.tri_v0) + tp, tri_e1=mm(lp, s.tri_e1),
                 tri_e2=mm(lp, s.tri_e2), face_normal=_normalized(mm(np_, s.face_normal)),
@@ -142,7 +143,7 @@ def apply_params(scene, cam, params: dict):
         # move); the BVH stays as built: hits come from the frozen tree,
         # shading from the moved triangles through refine_hit
         s = dataclasses.replace(
-            s, tri_v0=s.tri_v0 + params["translation"][s.prim_inst.long()])
+            s, tri_v0=s.tri_v0 + take_rows(params["translation"], s.prim_inst.long()))
     if "instance_trs" in params:
         s = dataclasses.replace(s, **_rebake(s, params["instance_trs"]))
     if "camera_pos" in params:

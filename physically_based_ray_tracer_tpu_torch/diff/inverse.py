@@ -19,8 +19,9 @@ from physically_based_ray_tracer_tpu_torch.config import RenderConfig
 from physically_based_ray_tracer_tpu_torch.diff.grad import (adam, apply_params,
                                                              clone_params, render_color,
                                                              trainable)
+from physically_based_ray_tracer_tpu_torch.ops import take_rows
 from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
-from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate
+from physically_based_ray_tracer_tpu_torch.utils.profiling import add_attrs, annotate
 
 
 def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimizer,
@@ -39,7 +40,9 @@ def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimi
     the same Adam step.
 
     A step is a ``pbrt.step`` span, with ``pbrt.forward`` (the parameters
-    applied, the render and the loss) and ``pbrt.backward`` inside."""
+    applied, the render and the loss) and ``pbrt.backward`` inside; the
+    backward's span counts the row gather's backward calls (``take_rows``)
+    and the rows they reduced (``take_rows_rows``)."""
 
     @annotate("pbrt.step")
     def step(params, key, sample, pixel_ids, target):
@@ -49,7 +52,10 @@ def make_train_step(scene, cam, cfg: RenderConfig, optimizer: torch.optim.Optimi
             color = render_color(s, c, cfg, key, sample, pixel_ids)
             loss = torch.mean((color - target) ** 2)
         with annotate("pbrt.backward"):
+            calls, rows = take_rows.backward_calls()
             loss.backward()
+            calls2, rows2 = take_rows.backward_calls()
+            add_attrs(take_rows=calls2 - calls, take_rows_rows=rows2 - rows)
         loss = loss.detach()
         if axis_name is not None:
             mesh = lookup(axis_name)

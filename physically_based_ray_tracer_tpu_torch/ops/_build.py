@@ -3,7 +3,8 @@
 ``nvcc`` compiles each source of ``csrc/`` (``traverse_f32.cu``, kernel B1;
 ``traverse_bf16.cu``, kernel B2; ``traverse_rows.cu``, kernel B3;
 ``leaf_mt.cu``, kernel B4; ``wave_scan.cu``, the wave engine's node scan;
-``wave_level.cu``, the wave engine's fused cascade level)
+``wave_level.cu``, the wave engine's fused cascade level; ``take_rows.cu``,
+the backward of the row gather ``ops/take_rows.py``)
 into a shared library of its own with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). The libraries go to ``build/torch_kernels/`` at the
 repository root, each named by a hash of its source, the shared headers
@@ -28,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("traverse_f32", "traverse_bf16", "traverse_rows", "leaf_mt",
-                        "wave_scan", "wave_level")}
+                        "wave_scan", "wave_level", "take_rows")}
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 # exact IEEE arithmetic (no fast math, no FMA contraction) so that the
 # kernels match their plain PyTorch versions bit for bit
@@ -86,6 +87,11 @@ _SIGNATURES = {
         "pbrt_wave_level_threads": ([], _i),
         "pbrt_wave_level": ([_p, _p, _i, *[_p] * 18, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                              _p, _p, _p, _i, _p, _p, _p], _i),
+    },
+    "take_rows": {
+        "pbrt_take_rows_error_string": ([_i], ctypes.c_char_p),
+        "pbrt_take_rows_tile": ([], _i),
+        "pbrt_take_rows_backward": ([_p, _p, _p, _p, _p, _i, _i, _p], _i),
     },
 }
 

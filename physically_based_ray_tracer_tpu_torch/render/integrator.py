@@ -69,6 +69,7 @@ from physically_based_ray_tracer_tpu_torch.ops import brdf as brdf_ops
 from physically_based_ray_tracer_tpu_torch.ops import (trace, trace_bf16, trace_rows,
                                                       traverse, traverse_packet)
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit
+from physically_based_ray_tracer_tpu_torch.ops.take_rows import take_rows
 from physically_based_ray_tracer_tpu_torch.ops.traverse import refine_hit
 from physically_based_ray_tracer_tpu_torch.parallel.mesh import lookup
 from physically_based_ray_tracer_tpu_torch.parallel.resharding import (ring_donate,
@@ -338,7 +339,7 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
         dist = torch.sqrt(dist_sq)
         ld = lvec / dist[:, None]
         cos_light = torch.clamp(-dot(ld, ln), min=0.0)
-        col = lights.area_color[which.long().clamp(0, lights.n_area - 1)]
+        col = take_rows(lights.area_color, which.long())
         c = col * (cos_light / (dist_sq * pdf_area * p_area
                                 * float(lights.n_area)))[:, None] * float(lights.n_area)
         l_dir = torch.where(pick_area[:, None], ld, l_dir)

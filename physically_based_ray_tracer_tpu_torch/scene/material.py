@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from physically_based_ray_tracer_tpu_torch.ops.brdf import MaterialProperties
+from physically_based_ray_tracer_tpu_torch.ops.take_rows import take_rows
 from physically_based_ray_tracer_tpu_torch.utils.math import (normalize,
                                                               srgb_to_linear)
 
@@ -28,8 +29,9 @@ MERGED_PACK_MAX_PRIMS = 262144
 
 
 def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather with clamped indices (jnp.take mode="clip")."""
-    return arr[idx.clamp(0, arr.shape[0] - 1)]
+    """Row gather with clamped indices (jnp.take mode="clip"); its backward,
+    where ``arr`` needs a gradient, is take_rows's segmented sum."""
+    return take_rows(arr, idx)
 
 
 def _decode_rgb(texel: torch.Tensor) -> torch.Tensor:

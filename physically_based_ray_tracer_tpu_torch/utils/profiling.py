@@ -25,6 +25,10 @@ The program's spans and counters:
   read device data on the host. It counts the read in ``READS[site]``
   (always) and, while a span is open, adds it to the innermost open span's
   ``reads`` and the host time blocked in it to its ``wait_ns``.
+* ``add_attrs(**attrs)`` adds counts to the innermost open span's
+  ``attrs`` (the train step's ``pbrt.backward`` gets ``take_rows`` and
+  ``take_rows_rows``: the row gather's backward calls, each one kernel
+  launch on the card, and the rows they reduced).
 * ``count_lanes(t_max)`` is called on every dense traversal launch (the
   kernel and the plain version alike): while a span is open, it adds the
   launch's lanes to the innermost open span's ``lanes`` and its live lanes
@@ -166,6 +170,14 @@ def host_read(site: str, x: torch.Tensor):
         rec.wait_ns += time.time_ns() - t0
         rec.reads += 1
     return out
+
+
+def add_attrs(**attrs) -> None:
+    """``attrs`` added to the innermost open span's record (nothing while
+    tracing is off)."""
+    rec = _innermost()
+    if rec is not None:
+        rec.attrs = dict(rec.attrs, **attrs)
 
 
 def count_lanes(t_max: torch.Tensor) -> None:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Times kernels B1, B2 and B3 of two checkouts of the port on one GPU, in
-turns; B3's split thresholds; and the fused wave level's block shapes.
+turns; B3's split thresholds; the fused wave level's block shapes; and the
+row gather's backward on the inverse step.
 
     python3 time_kernels.py --compare OTHER_ROOT     # OTHER, this, this, OTHER
     python3 time_kernels.py [--root ROOT] --out FILE.json
     python3 time_kernels.py --rows-split             # kept, others, others reversed, kept
     python3 time_kernels.py --wave-blocks            # 1024, 512, 512, 1024
+    python3 time_kernels.py --take-rows [--out FILE.json]
 
 ``--compare`` unpacks nothing itself: OTHER_ROOT is another checkout of the
 repository (e.g. the parent commit, from ``git archive``). It runs one
@@ -58,6 +60,11 @@ differ from the kept shape's. Then, for the kept shape, each level's device
 microseconds a wave beside those of the same level run with
 ``node_steps=0`` for as many waves (no scan step and no leaf: the fixed cost
 of a wave).
+
+``--take-rows`` records each call of the row gather's backward
+(``ops/take_rows.py``) in one step of the inverse cell's problem and times
+each call's kernel against the plain version and PyTorch's
+``index_put_(accumulate=True)``; see ``take_rows_timing``.
 """
 
 from __future__ import annotations
@@ -82,6 +89,8 @@ ROWS_SPLIT_CONST = r"constexpr int SPLIT_LANES = (\d+);"
 ROWS_SPLIT_TEST = r"const unsigned off_step =[^{]*?SPLIT_LANES\) \{"
 WAVE_CALLS = (("bounce", "closest"), ("shadow", "any"))
 L2_FLUSH_BYTES = 128 << 20  # written before each cold run: more than the 50 MB L2
+# --take-rows: whole steps timed a turn
+TAKE_ROWS_STEPS = 5
 
 
 def _event_ms(fn):
@@ -444,6 +453,140 @@ def wave_blocks(runs):
     print(json.dumps({"ok": True, "card": card}))
 
 
+def take_rows_timing(runs, out_path):
+    """``--take-rows``: the row gather's backward (``ops/take_rows.py``) on
+    the inverse cell's step: the bench problem of ``chip_smoke.py``
+    (``_bench_grad_problem``, the exact f32 engine) on 65,536 pixels drawn
+    as the benchmark draws them. Records every backward call of the step
+    (rows, columns, table rows, the longest run of one row and the row it
+    falls on, the lanes on row 0 and on the floor's rows), then per call the
+    median device time of the kernel's two passes (with the table's
+    zeroing), of the whole call (with the sort), of the plain version
+    (``index_add_``) and of PyTorch's own call
+    (``index_put_(accumulate=True)``), the byte bound and the kernel's
+    error against the latter. Checks that two backwards of the step give the
+    same bits, that the loss is bit-equal to the one through the indexing
+    take_rows replaced, and times whole steps both ways in turns (new, old,
+    old, new)."""
+    sys.path.insert(0, HERE)
+    import torch
+    import chip_smoke
+    from physically_based_ray_tracer_tpu_torch import RenderConfig
+    from physically_based_ray_tracer_tpu_torch.diff import grad as dgrad
+    from physically_based_ray_tracer_tpu_torch.diff.inverse import make_train_step
+    from physically_based_ray_tracer_tpu_torch.ops import _build
+    from physically_based_ray_tracer_tpu_torch.ops import take_rows as tr
+    from physically_based_ray_tracer_tpu_torch.render import integrator
+    from physically_based_ray_tracer_tpu_torch.scene import material
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = chip_smoke._smi()
+    # built afresh, so that nvcc's log holds ptxas's lines on the kernels
+    _build.library_path("take_rows").unlink(missing_ok=True)
+    _build.build_all()
+    _build.load("take_rows")
+    usage = chip_smoke._ptxas_usage(_build.BUILD_INFO["take_rows"]["log"])
+    print(f"take_rows kernels (registers, stack frame, spill bytes): {json.dumps(usage)}",
+          flush=True)
+    cfg = RenderConfig(width=1280, height=720, bounces=4, antialias=True, skybox=False,
+                       one_shadow_ray=True, chunk_pixels=65536, leaf_precision="f32")
+    scene, cam, target, start, _ = chip_smoke._bench_grad_problem(dev, cfg)
+    seed = chip_smoke.STEP_SEED
+    ids, tgt = chip_smoke._step_pixels(cfg, target, seed, chip_smoke.STEP_PIXELS)
+    old_take = lambda t, i: t[i.clamp(0, t.shape[0] - 1)]
+    mods = (material, dgrad, integrator)
+    grads = lambda record=False: chip_smoke._gather_step(scene, cam, cfg, start, ids, tgt,
+                                                         seed, record)
+    loss1, g1, calls = grads(record=True)
+    launches = tr.LAUNCHES
+    loss2, g2, _ = grads()
+    n_launch = tr.LAUNCHES - launches
+    for m in mods:
+        m.take_rows = old_take
+    try:
+        loss0, g0, _ = grads()
+    finally:
+        for m in mods:
+            m.take_rows = tr.take_rows
+    same = all(torch.equal(g1[k], g2[k]) for k in g1) and torch.equal(loss1, loss2)
+    rel = {k: float((g1[k] - g0[k]).norm() / g0[k].norm()) for k in g0}
+    res = dict(card=card, ptxas=usage, seed=seed, batch=chip_smoke.STEP_PIXELS,
+               backward_calls=n_launch, bitwise_repeat=same,
+               loss=float(loss1), loss_equal_to_indexing=bool(torch.equal(loss1, loss0)),
+               grad_rel_to_indexing=rel, calls=[])
+    print(f"step's backward: {n_launch} take_rows launches; two backwards bit-equal: {same}; "
+          f"loss {float(loss1)!r} bit-equal to the indexing's {float(loss0)!r}: "
+          f"{res['loss_equal_to_indexing']}; ||g - g_indexing|| / ||g_indexing|| per leaf "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} [{card}]", flush=True)
+    floor = (scene.prim_inst == scene.prim_inst.max()).nonzero()[:, 0]
+    for grad, idx, n_rows in calls:
+        n, c = grad.shape
+        keys, perm = torch.sort(idx.to(torch.int32), stable=True)
+        rows, counts = torch.unique_consecutive(keys, return_counts=True)
+        at = int(counts.argmax())
+        call = dict(n=n, c=c, rows=n_rows, distinct=int(rows.numel()),
+                    longest_run=int(counts[at]), longest_row=int(rows[at]),
+                    on_row0=int((idx == 0).sum()))
+        if n_rows == scene.prim_inst.shape[0]:
+            call["on_floor"] = int(torch.isin(idx, floor).sum())
+            call["floor_rows"] = floor.tolist()
+        lib_call = lambda: torch.zeros((n_rows, c), device=dev).index_put_(
+            (idx.long(),), grad, accumulate=True)
+        ms = _median_ms(lambda: tr.reduce_sorted(grad, keys, perm, n_rows),
+                        lambda: tr.segment_sum(grad, idx, n_rows),
+                        lambda: tr.plain_segment_sum(grad, idx, n_rows), lib_call, runs=runs)
+        nbytes = n * c * 4 + n * (4 + 8) + n_rows * c * 4
+        want = lib_call().double()
+        got = tr.segment_sum(grad, idx, n_rows).double()
+        call.update(kernel_ms=ms[0], call_ms=ms[1], plain_ms=ms[2], library_ms=ms[3],
+                    bytes=nbytes, bound_ms=nbytes / chip_smoke.PEAK_BYTES * 1e3,
+                    share=nbytes / chip_smoke.PEAK_BYTES * 1e3 / ms[0],
+                    rel_err_vs_library=float((got - want).norm()
+                                             / want.norm().clamp_min(1e-30)))
+        res["calls"].append(call)
+        print(f"take_rows {n} x {c} from {n_rows}: longest run {call['longest_run']} on row "
+              f"{call['longest_row']} ({call['distinct']} rows; {call['on_row0']} on row 0"
+              + (f", {call['on_floor']} on the floor {call['floor_rows']}"
+                 if "on_floor" in call else "")
+              + f"); kernel {ms[0]:.4f} ms, with the sort {ms[1]:.4f}, plain {ms[2]:.4f}, "
+              f"index_put_ {ms[3]:.4f}; bound {call['bound_ms']:.5f} ms "
+              f"({call['share'] * 100:.2f}%) [{card}]", flush=True)
+
+    def step_ms(old):
+        if old:
+            for m in mods:
+                m.take_rows = old_take
+        try:
+            params = dgrad.clone_params(start)
+            step = make_train_step(scene, cam, cfg, dgrad.adam(params, 0.02))
+            times = []
+            for k in range(2 + TAKE_ROWS_STEPS):
+                t0 = time.perf_counter()
+                float(step(params, seed, k, ids, tgt))
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times[2:])
+        finally:
+            for m in mods:
+                m.take_rows = tr.take_rows
+
+    turns = [("take_rows", step_ms(False)), ("indexing", step_ms(True)),
+             ("indexing", step_ms(True)), ("take_rows", step_ms(False))]
+    res["step_ms_turns"] = turns
+    print(f"step ms (median of {TAKE_ROWS_STEPS} after 2, new / old / old / new): "
+          f"{json.dumps(turns)} [{card}]", flush=True)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(res, f, indent=1)
+    ok = same and res["loss_equal_to_indexing"] and all(
+        c["rel_err_vs_library"] < 1e-5 for c in res["calls"])
+    print(json.dumps({"ok": ok, "card": card}))
+    if not ok:
+        raise SystemExit("time_kernels: take_rows is not bit-stable or differs from index_put_")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--compare", metavar="OTHER_ROOT")
@@ -453,8 +596,11 @@ def main():
     ap.add_argument("--out-dir", default=os.path.join(HERE, "build", "time_kernels"))
     ap.add_argument("--wave-blocks", action="store_true")
     ap.add_argument("--rows-split", action="store_true")
+    ap.add_argument("--take-rows", action="store_true")
     a = ap.parse_args()
-    if a.rows_split:
+    if a.take_rows:
+        take_rows_timing(a.runs, a.out)
+    elif a.rows_split:
         rows_split(a.runs)
     elif a.wave_blocks:
         wave_blocks(a.runs)
@@ -463,7 +609,8 @@ def main():
     elif a.out:
         turn(a.root, a.runs, a.out)
     else:
-        ap.error("give --compare OTHER_ROOT, --out FILE, --rows-split or --wave-blocks")
+        ap.error("give --compare OTHER_ROOT, --out FILE, --rows-split, --wave-blocks or "
+                 "--take-rows")
 
 
 if __name__ == "__main__":
