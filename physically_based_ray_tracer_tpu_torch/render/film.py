@@ -3,7 +3,8 @@
 
 Gamma (sqrt) is applied to the frame's trace result before accumulation; a
 pixel's running mean resets when its primary-hit distance changes by more
-than EPSILON.
+than EPSILON. While the program's spans record, ``update`` counts the slots
+whose running mean restarted (``profiling.count_reset``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from physically_based_ray_tracer_tpu_torch.config import EPSILON, RenderConfig
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+from physically_based_ray_tracer_tpu_torch.utils.profiling import count_reset
 
 
 class FilmState(NamedTuple):
@@ -40,12 +42,14 @@ def update(film: FilmState, color: torch.Tensor, primary_t: torch.Tensor,
         color = torch.where(pos, torch.sqrt(torch.where(pos, color, 1.0)),
                             torch.zeros_like(color))
     if not cfg.accumulate:
+        count_reset(film.spp.shape[0])
         return FilmState(accum=color, spp=torch.ones_like(film.spp),
                          dist=primary_t), color
     if depth_keyed:
         same = torch.abs(film.dist - primary_t) < EPSILON
     else:
         same = torch.ones_like(film.spp, dtype=torch.bool)
+    count_reset(film.spp.shape[0], same)
     new_spp = torch.where(same, film.spp + 1.0, torch.ones_like(film.spp))
     new_accum = torch.where(same[:, None], film.accum + color, color)
     avg = new_accum / new_spp[:, None]

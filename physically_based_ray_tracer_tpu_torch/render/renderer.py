@@ -21,6 +21,7 @@ from physically_based_ray_tracer_tpu_torch.ops.tonemap import POST_PRESETS, post
 from physically_based_ray_tracer_tpu_torch.render import film as film_mod
 from physically_based_ray_tracer_tpu_torch.render.integrator import (
     check_supported, render_sample)
+from physically_based_ray_tracer_tpu_torch.scene.scene import rebuild_scene
 from physically_based_ray_tracer_tpu_torch.utils import image as image_utils
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate, host_read
@@ -113,13 +114,20 @@ class Renderer:
     queue drained at both ends, the film fetched to the host inside) and
     its ray count (``utils.timer.ray_count``). A tick is a ``pbrt.tick``
     span; its tail after the last chunk (the film's update, the fetch to the
-    host, the display image) a ``pbrt.film`` span."""
+    host, the display image) a ``pbrt.film`` span.
+
+    ``handle`` is the ``InstancedScene`` that ``build_scene_instanced``
+    returned with ``scene``; with it, ``tick(key, instances)`` moves the
+    instances inside the tick (the game loop's pose sync and TLAS rebuild
+    before the render), and the film keeps its per-pixel depth-keyed
+    reset."""
 
     def __init__(self, scene, camera, config: RenderConfig,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, handle=None):
         check_supported(config, scene)
         self.device = resolve(device)
         self.scene = scene.to(self.device)
+        self.handle = handle
         self.camera = camera.to(self.device)
         self.config = config
         self.film = film_mod.FilmState.zeros(config.n_pixels, device=self.device)
@@ -136,12 +144,26 @@ class Renderer:
                                              device=self.device)
         self.sample = 0
 
-    def tick(self, key: int = 0) -> np.ndarray:
+    def tick(self, key: int = 0, instances=None) -> np.ndarray:
         """Render one frame (``samples_per_pixel`` samples/pixel [+AA]),
         update accumulation, and return the display image (H, W, 3) float
-        in [0, 1]."""
+        in [0, 1].
+
+        ``instances`` (the scene's instance list at this tick's poses)
+        first moves the scene: ``rebuild_scene`` in a ``pbrt.rebuild`` span
+        (attributes ``moved`` and ``tris``, the instances and triangles
+        re-baked), inside the tick's time. The film is not reset: each
+        pixel's running mean restarts where its primary-hit distance
+        moved. Without ``instances`` the tick does nothing more."""
+        if instances is not None and self.handle is None:
+            raise ValueError("Renderer.tick: instances need the InstancedScene handle "
+                             "of build_scene_instanced (Renderer(..., handle=))")
         with annotate("pbrt.tick"), contextlib.ExitStack() as timed:
             timer = timed.enter_context(DeviceTimer(self.device))
+            if instances is not None:
+                with annotate("pbrt.rebuild"):
+                    self.scene = rebuild_scene(self.scene, self.handle, instances,
+                                               device=self.device)
             color, primary_t = render_chunked(self.scene, self.camera, self.config, key,
                                               self.sample, self._pixel_ids)
             with annotate("pbrt.film"):

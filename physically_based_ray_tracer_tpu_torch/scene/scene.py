@@ -40,6 +40,7 @@ from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.math import (
     compose_trs, inverse_transpose_3x3, transform_points)
+from physically_based_ray_tracer_tpu_torch.utils.profiling import add_attrs
 
 
 @dataclass
@@ -291,6 +292,20 @@ class InstancedScene:
     prim_count: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int64))
     dense_leaf_target: int = 16
     dense_shape: bool = True
+    # per device: each model's corners, normals and face normals, and each
+    # instance's prim rows, as tensors there (``rebuild_scene`` bakes on it)
+    on_device: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def tensors(self, dev: torch.device) -> tuple[list, list]:
+        """(per model (corners, normals, face normals), per instance its
+        rows of the prim order), on ``dev``, made on first use."""
+        if dev not in self.on_device:
+            t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            models = [(t(m.corners), t(m.normals), t(m.face_normals)) for m in self.models]
+            rows = [torch.arange(s, s + c, device=dev)
+                    for s, c in zip(self.prim_start.tolist(), self.prim_count.tolist())]
+            self.on_device[dev] = (models, rows)
+        return self.on_device[dev]
 
 
 def _instance_offsets(models, instances):
@@ -299,20 +314,47 @@ def _instance_offsets(models, instances):
     return starts, counts
 
 
-def _bake_one(mdl: MeshModel, inst: Instance):
-    """World-space shading arrays of one instance (the unit of a refresh):
-    v0, e1, e2, face normals (T, 3) and corner normals (3T, 3), f32."""
-    m = inst.transform
-    nrm_m = inverse_transpose_3x3(m)
-    wc = transform_points(m, mdl.corners).astype(np.float32)
-    wn = mdl.normals @ nrm_m.T
-    wn /= np.maximum(np.linalg.norm(wn, axis=1, keepdims=True), 1e-20)
-    wf = mdl.face_normals @ nrm_m.T
-    wf /= np.maximum(np.linalg.norm(wf, axis=1, keepdims=True), 1e-20)
-    tri = wc.reshape(-1, 3, 3)
-    v0 = tri[:, 0]
-    return (v0, tri[:, 1] - v0, tri[:, 2] - v0,
-            wf.astype(np.float32), wn.astype(np.float32))
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` (..., 3) over their length floored at 1e-20: the
+    squares summed x + y + z in order, as numpy's norm over a row of three
+    sums them, and the root taken in f64, so that it is the correctly
+    rounded f32 root on any device (a CPU's vector f32 root is not)."""
+    sq = x * x
+    length = torch.sqrt((sq[..., 0] + sq[..., 1] + sq[..., 2]).double()).float()
+    return x / torch.clamp_min(length, 1e-20)[..., None]
+
+
+def _bake_moved(handle: InstancedScene, instances: list[Instance], moved: list[int],
+                dev: torch.device):
+    """The moved instances' world-space shading arrays, baked on ``dev``:
+    (prim rows, corner-normal rows, [v0, e1, e2, face normals, corner
+    normals]), the values in the rows' order. One upload of the instances'
+    matrices, then batched per model: ``corners @ M.T + t`` and the normals
+    through the inverse transpose of M, in f32 as ``_bake_world`` computes
+    them on the host (on the CPU, byte for byte)."""
+    models, rows = handle.tensors(dev)
+    mats = np.stack([np.concatenate([instances[i].transform[:3, :3].T.ravel(),
+                                     instances[i].transform[:3, 3],
+                                     inverse_transpose_3x3(instances[i].transform).T.ravel()])
+                     for i in moved]).astype(np.float32)
+    mats = torch.from_numpy(mats).to(dev)
+    by_model: dict[int, list[int]] = {}
+    for j, i in enumerate(moved):
+        by_model.setdefault(instances[i].model, []).append(j)
+    order, parts = [], []
+    for model, js in by_model.items():
+        corners, normals, face_normals = models[model]
+        m = mats[js]
+        rot, shift, nrm = m[:, :9].view(-1, 3, 3), m[:, 9:12][:, None], m[:, 12:].view(-1, 3, 3)
+        tri = (torch.matmul(corners, rot) + shift).view(len(js), -1, 3, 3)
+        v0 = tri[:, :, 0]
+        parts.append((v0, tri[:, :, 1] - v0, tri[:, :, 2] - v0,
+                      _unit_rows(torch.matmul(face_normals, nrm)),
+                      _unit_rows(torch.matmul(normals, nrm))))
+        order += [moved[j] for j in js]
+    idx = torch.cat([rows[i] for i in order])
+    cidx = (3 * idx[:, None] + torch.arange(3, device=dev)).view(-1)
+    return idx, cidx, [torch.cat([p[k].reshape(-1, 3) for p in parts]) for k in range(5)]
 
 
 def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
@@ -379,15 +421,19 @@ def rebuild_scene(data: SceneData, handle: InstancedScene,
     unchanged: the same model in every instance slot), on ``device`` (where
     ``data`` already lies, as a Renderer's scene does, nothing moves).
 
-    Instances whose transform changed (``np.allclose``) are re-baked, and
-    their prim slices of ``tri_v0/e1/e2``, ``face_normal`` and the
-    interleaved ``corner_normal`` are scattered into copies, one batched
-    scatter per array. A two-level table gets ``refresh_tlas`` (the BLAS
+    Instances whose transform changed (``np.allclose``) are re-baked on
+    the scene's device (``_bake_moved``: one upload of their matrices, no
+    host array work per triangle), and their prim slices of
+    ``tri_v0/e1/e2``, ``face_normal`` and the interleaved
+    ``corner_normal`` are scattered into copies, one batched scatter per
+    array. A two-level table gets ``refresh_tlas`` (the BLAS
     and group tensors are shared with ``data``); a flattened one
     (``handle.tlas_meta is None``) is rebuilt by ``build_dense`` when
     something moved; with ``handle.legacy_bvh`` the classic BVH is rebuilt
     by the native builder. ``handle.instances`` becomes ``instances``.
-    Nothing of ``data`` is written."""
+    Nothing of ``data`` is written. While the program's spans record, the
+    innermost open span gets ``moved`` and ``tris``: the instances and the
+    triangles re-baked."""
     if len(instances) != len(handle.instances):
         raise AssertionError("rebuild_scene: the instance count changed")
     if any(a.model != b.model for a, b in zip(instances, handle.instances)):
@@ -398,23 +444,15 @@ def rebuild_scene(data: SceneData, handle: InstancedScene,
     moved = [i for i, (a, b) in enumerate(zip(instances, handle.instances))
              if not np.allclose(a.transform, b.transform)]
     handle.instances = list(instances)
+    add_attrs(moved=len(moved), tris=int(handle.prim_count[moved].sum()))
     arrays = {k: getattr(data, k) for k in ("tri_v0", "tri_e1", "tri_e2",
                                             "face_normal", "corner_normal")}
     if moved:
-        parts = [_bake_one(handle.models[instances[i].model], instances[i])
-                 for i in moved]
-        idx = np.concatenate([np.arange(handle.prim_start[i],
-                                        handle.prim_start[i] + handle.prim_count[i])
-                              for i in moved])
-        cidx = np.concatenate([3 * idx, 3 * idx + 1, 3 * idx + 2])
-        wn = np.concatenate([p[4] for p in parts])
-        new = [np.concatenate([p[k] for p in parts]) for k in range(4)]
         # corner normals are interleaved per prim (3P, 3): corner c of prim
-        # p at row 3p + c, so the values go corner by corner as cidx does
-        new.append(wn.reshape(-1, 3, 3).swapaxes(0, 1).reshape(-1, 3))
-        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        # p at row 3p + c, as the baked corner normals run
+        idx, cidx, new = _bake_moved(handle, instances, moved, dev)
         for (k, x), rows, vals in zip(arrays.items(), [idx] * 4 + [cidx], new):
-            arrays[k] = x.index_put((t(rows),), t(vals))
+            arrays[k] = x.index_put((rows,), vals)
     tris = [arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2")]
     if handle.tlas_meta is not None:
         transforms = np.stack([i.transform for i in instances]).astype(np.float32)

@@ -33,11 +33,16 @@ The program's spans and counters:
   kernel and the plain version alike): while a span is open, it adds the
   launch's lanes to the innermost open span's ``lanes`` and its live lanes
   (``t_max > 0``, summed on the device, so no sync) to its ``live``.
+* ``count_reset(slots, kept)`` is called on every film update: while a span
+  is open, it adds the update's film slots to the innermost open span's
+  ``slots`` and the slots that went on with their running mean (``kept``,
+  summed on the device, so no sync) to its count of kept slots; its
+  ``reset`` is the difference, the slots whose running mean restarted.
 
-``spans()`` returns the records as dicts, with ``live`` read back from the
-device (a sync: call it after the work); ``reset()`` clears the buffer and
-the counts. One process has one stack of open spans: the frame and the
-step run on one thread.
+``spans()`` returns the records as dicts, with ``live`` and ``reset`` read
+back from the device (a sync: call it after the work); ``reset()`` clears
+the buffer and the counts. One process has one stack of open spans: the
+frame and the step run on one thread.
 """
 
 from __future__ import annotations
@@ -56,14 +61,15 @@ CAP = 1 << 16                   # records kept until reset()
 READS: dict[str, int] = {}      # host reads of device data, per site
 
 _FIELDS = ("name", "parent", "tick", "start_ns", "end_ns", "reads", "wait_ns",
-           "lanes", "live", "attrs")
+           "lanes", "live", "slots", "attrs")
+_DEVICE_SUMS = ("live", "kept")     # record lists holding device scalars until spans()
 _records: list["_Record"] = []
 _open: list["_Record | None"] = []      # open spans, innermost last (None: dropped)
 _state = {"dropped": 0, "ticks": 0}
 
 
 class _Record:
-    __slots__ = _FIELDS + ("index",)
+    __slots__ = _FIELDS + ("index", "kept")
 
 
 class _NoSpan:
@@ -110,8 +116,9 @@ class _Span:
             _state["ticks"] += 1
         else:
             rec.tick = parent.tick
-        rec.reads = rec.wait_ns = rec.lanes = 0
+        rec.reads = rec.wait_ns = rec.lanes = rec.slots = 0
         rec.live = []
+        rec.kept = []
         rec.end_ns = None
         _records.append(rec)
         _open.append(rec)
@@ -189,20 +196,34 @@ def count_lanes(t_max: torch.Tensor) -> None:
         rec.live.append((t_max > 0).sum())
 
 
+def count_reset(slots: int, kept: torch.Tensor | None = None) -> None:
+    """One film update over ``slots`` slots, of which ``kept`` (a bool mask
+    on the device; None: none) went on with their running mean and the
+    rest restarted, added to the innermost open span."""
+    rec = _innermost()
+    if rec is not None:
+        rec.slots += slots
+        if kept is not None:
+            rec.kept.append(kept.sum())
+
+
 def spans() -> list[dict]:
-    """The records, in the order the spans opened, as dicts of ``_FIELDS``,
-    ``live`` summed to an int: the device's counts are read back here, in
-    one transfer per device, and kept as ints."""
+    """The records, in the order the spans opened, as dicts of ``_FIELDS``
+    and ``reset`` (``slots`` less the kept slots), ``live`` summed to an
+    int: the device's counts are read back here, in one transfer per
+    device, and kept as ints."""
     pending: dict[torch.device, list] = {}
     for rec in _records:
-        for i, x in enumerate(rec.live):
-            if isinstance(x, torch.Tensor):
-                pending.setdefault(x.device, []).append((rec.live, i))
-    for slots in pending.values():
-        values = torch.stack([live[i] for live, i in slots]).tolist()
-        for (live, i), v in zip(slots, values):
-            live[i] = int(v)
-    return [dict({k: getattr(rec, k) for k in _FIELDS}, live=sum(rec.live))
+        for counts in (getattr(rec, k) for k in _DEVICE_SUMS):
+            for i, x in enumerate(counts):
+                if isinstance(x, torch.Tensor):
+                    pending.setdefault(x.device, []).append((counts, i))
+    for where in pending.values():
+        values = torch.stack([counts[i] for counts, i in where]).tolist()
+        for (counts, i), v in zip(where, values):
+            counts[i] = int(v)
+    return [dict({k: getattr(rec, k) for k in _FIELDS},
+                 live=sum(rec.live), reset=rec.slots - sum(rec.kept))
             for rec in _records]
 
 
@@ -255,7 +276,7 @@ def _merge_spans(path: str, recs: list[dict]) -> None:
         if r["end_ns"] is None:
             continue
         args = dict(r["attrs"], tick=r["tick"], reads=r["reads"], wait_us=r["wait_ns"] / 1e3,
-                    lanes=r["lanes"], live=r["live"])
+                    lanes=r["lanes"], live=r["live"], slots=r["slots"], reset=r["reset"])
         events.append({"ph": "X", "cat": "pbrt_span", "name": r["name"], "pid": pid,
                        "tid": tid, "ts": (r["start_ns"] - base) / 1e3,
                        "dur": (r["end_ns"] - r["start_ns"]) / 1e3, "args": args})
