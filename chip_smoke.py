@@ -347,6 +347,18 @@ started together (into ``build/torch_kernels/``), then:
    ``tests/test_torch_brdf_images.py``) and ``CONV_*`` to the fixture and
    the docs file (``tests/test_torch_converged.py``). Prints each
    sub-phase's seconds and the phase's;
+18. the recorded frame chunk (``render/graph.py``), after 7: on the bench
+   frame at 1280x720 and on the game's 480x270 tick with the nine spheres
+   orbiting (``Renderer.tick(key, instances)``), both bf16, the
+   two-level layout, ``GRAPH_TICKS`` ticks of a Renderer whose ticks
+   replay the recorded chunk against as many of one held to the eager,
+   gated path (``graph_path`` refused): every film (accum, spp, dist) and
+   image bit-equal, the last replayed tick recorded under
+   ``torch.profiler`` (card and host) with the same result and its
+   ``pbrt.tick`` span counting one replay a chunk, no capture, and copied
+   scene tensors on the moving tick; B2 closest launches counted for the
+   replays (one a chunk and bounce); each path's median tick time printed
+   beside the other's with the card;
 14. prints the kernels' JSON line (each kernel's launches over phase 12
    under ``dynamic_path_launches``, over phase 13 under
    ``diff_path_launches``, over phase 15 under ``classic_path_launches``,
@@ -457,6 +469,9 @@ DYN_ORBIT = 3.3
 REFIT_AMP = 0.01
 BRUTE_RAYS = 1024
 MODULE_OF = {"f32": "trace", "bf16": "trace_bf16", "rows": "trace_rows"}
+# the recorded frame chunk (phase 18): ticks of each path, the last one
+# replayed under the profiler
+GRAPH_TICKS = 4
 # the differentiable path (phase 13): pixels of the card-vs-CPU gradient
 # (phase 9's draw); its gate, ||g_card - g_cpu|| <= 1e-2 ||g_cpu|| per group
 # (phase 9 lets <= 1% of pixels fork on t-ties, and the card's backward sums
@@ -3166,6 +3181,80 @@ def _parity_on_card(dev, card, engines) -> None:
                for m in ("trace", "trace_bf16")), "phase 17b did not launch B1 and B2")
 
 
+def _graph_path(dev, card, cfg) -> dict:
+    """Phase 18: replayed ticks against eager ticks, bit for bit (module
+    docstring). Returns each path's median tick ms per frame."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from physically_based_ray_tracer_tpu_torch.animate import orbit
+    from physically_based_ray_tracer_tpu_torch.ops import trace_bf16
+    from physically_based_ray_tracer_tpu_torch.render import renderer as renderer_mod
+    from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer, _chunks
+    from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene
+    from physically_based_ray_tracer_tpu_torch.scene.scene import Instance
+    from physically_based_ray_tracer_tpu_torch.utils import profiling
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    report = {}
+    for name, (w, h), moving in (("bench 1280x720", (1280, 720), False),
+                                 ("game 480x270 moving", (480, 270), True)):
+        c = cfg.replace(width=w, height=h)
+
+        def ticks(replayed):
+            scene, cam, _, handle = build_bench_scene(flatten=False, return_handle=True,
+                                                      device=dev)
+            with contextlib.ExitStack() as stack:
+                if not replayed:
+                    stack.enter_context(mock.patch.object(renderer_mod, "graph_path",
+                                                          lambda cfg, device: False))
+                r = Renderer(scene, cam, c, device=dev, handle=handle)
+                out, ms, tick = [], [], None
+                for k in range(1, GRAPH_TICKS + 1):
+                    poses = orbit(0.05 * k, n=9, radius=DYN_ORBIT) + [Instance(1)] \
+                        if moving else None
+                    traced = replayed and k == GRAPH_TICKS
+                    launched = trace_bf16.LAUNCHES["closest"]
+                    profiling.reset()
+                    t0 = time.perf_counter()
+                    with (torch.profiler.profile(activities=acts) if traced
+                          else contextlib.nullcontext()):
+                        img = r.tick(0, instances=poses)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    if traced:
+                        tick = [x for x in profiling.spans() if x["name"] == "pbrt.tick"][-1]
+                    out.append((img, r.film, trace_bf16.LAUNCHES["closest"] - launched))
+            return r, out, ms, tick
+
+        _, eager, ms_e, _ = ticks(False)
+        r, replay, ms_r, tick = ticks(True)
+        n_chunks = _chunks(r._pixel_ids, c.chunk_pixels)[1]
+        same = [bool(np.array_equal(a[0], b[0]))
+                and all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a[1], b[1]))
+                for a, b in zip(eager, replay)]
+        attrs = {k: tick["attrs"].get(k) for k in ("chunks", "replays", "captures",
+                                                    "refreshed")}
+        print(f"recorded chunk, {name}: ticks bit-equal to eager {same}; eager ms "
+              f"{[round(x, 2) for x in ms_e]}, replayed ms {[round(x, 2) for x in ms_r]} "
+              f"(the first records); median of the later ticks eager "
+              f"{statistics.median(ms_e[1:]):.2f}, replayed {statistics.median(ms_r[1:]):.2f}"
+              f" ms; traced tick {attrs}; B2 closest launches a replayed tick "
+              f"{[x[2] for x in replay]} [{card}]", flush=True)
+        _check(all(same), f"{name}: a replayed tick differs from the eager tick")
+        _check(r._graph is not None and r._graph.graph is not None,
+               f"{name}: the tick did not record a CUDA graph")
+        _check(attrs["chunks"] == n_chunks and attrs["replays"] == n_chunks
+               and attrs["captures"] == 0 and (attrs["refreshed"] > 0) == moving,
+               f"{name}: the traced tick's span counts {attrs}")
+        _check(all(x[2] == n_chunks * c.bounces for x in replay[1:]),
+               f"{name}: B2 closest launches of a replayed tick")
+        report[name] = {"eager_ms": statistics.median(ms_e[1:]),
+                        "replayed_ms": statistics.median(ms_r[1:])}
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -3443,6 +3532,10 @@ def main() -> int:
               f"{off * 100:.3f}% pixels off by > 0.05", flush=True)
         _check(mse < 2e-3 and off < 0.03, "bf16 frame vs f32 frame contract")
 
+    # 18. the recorded frame chunk against the eager path
+    with _Phase("recorded frame chunk"):
+        graph_ms = _graph_path(dev, card, cfg)
+
     # 8. the main path with the row-parallel engine (B3), vs the f32 frame
     with _Phase("main path, pallas_rows"):
         cfg_rows = cfg.replace(traversal="pallas_rows")
@@ -3666,6 +3759,7 @@ def main() -> int:
                     "spill_bytes": sum(u["spill_bytes"] for u in take_use.values())
                     if take_use else None})
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"recorded_chunk_ms": graph_ms}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

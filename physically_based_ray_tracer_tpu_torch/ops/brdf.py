@@ -17,7 +17,7 @@ from physically_based_ray_tracer_tpu_torch.config import (
     MIN_DIELECTRICS_F0, NDF, BRDFConfig, DiffuseModel, SpecularModel)
 from physically_based_ray_tracer_tpu_torch.ops import sampling
 from physically_based_ray_tracer_tpu_torch.utils.math import (
-    dot, lerp, normalize, quat_invert, quat_rotate, quat_rotation_to_z,
+    constant, dot, lerp, normalize, quat_invert, quat_rotate, quat_rotation_to_z,
     saturate)
 
 PI = sampling.PI
@@ -57,13 +57,9 @@ class BrdfData(NamedTuple):
     l_backfacing: torch.Tensor
 
 
-def _vec3(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
-
-
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance."""
-    return dot(rgb, _vec3([0.2126, 0.7152, 0.0722], rgb))
+    return dot(rgb, constant([0.2126, 0.7152, 0.0722], rgb))
 
 
 def base_color_to_specular_f0(base_color, metalness, reflectance=0.5,
@@ -213,7 +209,7 @@ def sample_specular_microfacet(vlocal, alpha, alpha_squared, specular_f0, u,
     (l_local, weight). Zero roughness yields the mirror direction."""
     alpha2d = torch.stack([alpha, alpha], dim=-1)
     h_rough = _sample_half_vector(vlocal, alpha2d, u, cfg)
-    h_mirror = _vec3([0.0, 0.0, 1.0], vlocal).expand(h_rough.shape)
+    h_mirror = constant([0.0, 0.0, 1.0], vlocal).expand(h_rough.shape)
     h = torch.where((alpha == 0.0)[..., None], h_mirror, h_rough)
     l = 2.0 * dot(vlocal, h)[..., None] * h - vlocal
     hdotl = torch.clamp(dot(h, l), 0.00001, 1.0)
@@ -335,7 +331,7 @@ def eval_indirect_combined_brdf(u, shading_normal, geometry_normal, v,
 
     dir_diffuse, _ = sampling.sample_hemisphere_cosine(u)
     data_d = prepare_brdf_data(
-        _vec3([0.0, 0.0, 1.0], v).expand(v_local.shape),
+        constant([0.0, 0.0, 1.0], v).expand(v_local.shape),
         dir_diffuse, v_local, material, cfg)
     w_diffuse = data_d.diffuse_reflectance * diffuse_term(data_d, cfg)[..., None]
     h_spec = _sample_half_vector(

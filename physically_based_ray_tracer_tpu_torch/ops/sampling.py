@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from physically_based_ray_tracer_tpu_torch.utils.math import (cross, lerp,
+from physically_based_ray_tracer_tpu_torch.utils.math import (constant, cross, lerp,
                                                               normalize)
 
 PI = 3.141592653589
@@ -39,8 +39,7 @@ def sample_ggx_vndf_heitz(ve: torch.Tensor, alpha2d: torch.Tensor,
         (lensq > 0.0)[..., None],
         torch.stack([-vh[..., 1] * inv_len, vh[..., 0] * inv_len,
                      torch.zeros_like(inv_len)], dim=-1),
-        torch.tensor([1.0, 0.0, 0.0], dtype=ve.dtype,
-                     device=ve.device).expand(vh.shape),
+        constant([1.0, 0.0, 0.0], ve).expand(vh.shape),
     )
     t2 = cross(vh, t1)
 

@@ -756,14 +756,16 @@ def intersect_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
     return _decode(dbvh, tb, gk, inst, refine, o, d, t_max)
 
 
-def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted):
+def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted,
+                       gated=True):
     """Occluded = certain, or uncertain and not certain with an exact f32
     occlusion (kernel B1) on those lanes alone (t_max masked to 0 elsewhere);
-    skipped when no lane needs it. ``presorted`` rays are traced in the
-    order given, so that lanes without a retest leave at the root together;
-    other rays are co-sorted first."""
+    skipped when no lane needs it (a host read), unless ``gated`` is False:
+    then the retest always runs, and with no lane needing it gives ``cert``.
+    ``presorted`` rays are traced in the order given, so that lanes without
+    a retest leave at the root together; other rays are co-sorted first."""
     need = unc & ~cert
-    if not host_read("retest", need.any()):
+    if gated and not host_read("retest", need.any()):
         return cert
     tm = torch.where(need, t_max, torch.zeros_like(t_max))
     if presorted:
@@ -773,11 +775,12 @@ def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted):
     return cert | (need & occ)
 
 
-def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
+def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max, *, gated=True) -> torch.Tensor:
     """Occlusion: kernel-certain (inside a triangle by more than the apron)
-    or an exact f32 verdict on the apron-uncertain lanes."""
+    or an exact f32 verdict on the apron-uncertain lanes (``gated``: see
+    ``_resolve_uncertain``)."""
     cert, unc = _call_bf16(dbvh, o, d, t_max, closest=False)
-    return _resolve_uncertain(dbvh, o, d, t_max, cert, unc, presorted=False)
+    return _resolve_uncertain(dbvh, o, d, t_max, cert, unc, presorted=False, gated=gated)
 
 
 def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
@@ -792,10 +795,11 @@ def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
     return Hit(*(trace._unsort(perm, x) for x in hit))
 
 
-def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major") -> torch.Tensor:
+def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major",
+                    gated=True) -> torch.Tensor:
     """Occlusion on sorted rays; the uncertain lanes are resolved in sorted
     order (no second sort), then the verdict is scattered back."""
     perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     cert, unc = _call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
-    occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True)
+    occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True, gated=gated)
     return trace._unsort(perm, occ)

@@ -12,6 +12,17 @@ lane passes through, and a slice where no live lane hit anything only
 settles the miss bookkeeping (sky radiance, primary depth). None of the
 gates changes a result.
 
+``gated=False`` (``trace_paths``, ``render_sample``) takes the three gates of
+a full-width chunk away, for a body recorded once as a CUDA graph, which
+cannot read the device on the host (``render/graph.py``): every bounce
+runs the closest-hit pass and the whole shading block, and the bf16
+engine's retest always launches (``trace_bf16._resolve_uncertain``). The
+radiance and primary depth are the gated path's, bit for bit: a dead or
+missed lane's radiance takes ``+ 0`` through the block's masked sums, and a
+dead lane traces with t_max 0 and sorts behind every live lane. The
+per-slice gates of ``shade_tile``, the debug tap and ring resharding keep
+their host reads and refuse it.
+
 A missed live lane adds ``throughput * sample_skybox(sky, d)`` when
 ``cfg.skybox`` is set and the scene has a sky image, in the shading block
 (lanes that missed, after the bf16-apron guard) and in the all-miss
@@ -114,7 +125,7 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
         raise NotImplementedError(
             f"leaf_precision={cfg.leaf_precision!r}: the port carries 'bf16' "
             "and 'f32'")
-    if cfg.reshard_axis is not None and cfg.reshard_ndev > 1:
+    if resharded(cfg):
         mesh = lookup(cfg.reshard_axis)
         if mesh.size != cfg.reshard_ndev:
             raise ValueError(f"reshard_ndev={cfg.reshard_ndev}, but the group of "
@@ -178,9 +189,10 @@ def _wave_kw(cfg: RenderConfig) -> dict:
     return dict(_packet_kw(cfg), dense=cfg.dense, shrink=cfg.wave_shrink)
 
 
-def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
+def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False, gated=True) -> torch.Tensor:
     """Occlusion of each ray; the rays and t_max are detached, as in
-    _closest. Every call is a ``pbrt.occlusion`` span."""
+    _closest. Every call is a ``pbrt.occlusion`` span. ``gated``: the bf16
+    engine's retest gate (module docstring)."""
     with annotate("pbrt.occlusion"):
         o, d, t_max = _detached(o, d, t_max)
         sort = sort and cfg.sort_rays
@@ -199,9 +211,15 @@ def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
             fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
         elif _use_bf16(cfg, scene.dense):
             fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
+            return fn(scene.dense, o, d, t_max, gated=gated)
         else:
             fn = trace.sorted_any_dense if sort else trace.intersect_any_dense
         return fn(scene.dense, o, d, t_max)
+
+
+def resharded(cfg: RenderConfig) -> bool:
+    """Ring resharding is on: a reshard axis over more than one rank."""
+    return cfg.reshard_axis is not None and cfg.reshard_ndev > 1
 
 
 def _light_type_weights(lights):
@@ -221,9 +239,10 @@ def _select(onehot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
-                    pixel_id, key: int, sample: int, depth: int, alive=None):
+                    pixel_id, key, sample: int, depth: int, alive=None, gated=True):
     """Stochastic next-event estimation; returns the vertex's radiance
-    contribution (throughput not applied)."""
+    contribution (throughput not applied). ``key``: an integer seed or a
+    ``rng.SeedTable``; ``gated``: the retest gate of the occlusion passes."""
     lights = scene.lights
     B = point.shape[0]
     zeros = torch.zeros((B, 3), dtype=point.dtype, device=point.device)
@@ -284,7 +303,8 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
             keep = (pick_point & live)[:, None] & (torch.sum(contrib, dim=-1) > 0)
             tmax = torch.where(keep, shadow_len - EPSILON,
                                torch.zeros_like(shadow_len)).transpose(0, 1).reshape(np_ * B)
-            occ = _anyhit(scene, cfg, so, sd, tmax, sort=True).reshape(np_, B).transpose(0, 1)
+            occ = _anyhit(scene, cfg, so, sd, tmax, sort=True,
+                          gated=gated).reshape(np_, B).transpose(0, 1)
             visible = (~occ) & pick_point[:, None]
             point_contrib = torch.sum(torch.where(visible[..., None], contrib,
                                                   torch.zeros_like(contrib)), dim=1)
@@ -350,7 +370,7 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
     # zero-contribution shadow rays cannot change the result: mask them off
     t_other = torch.where(live & (torch.sum(contrib_other, dim=-1) > 0),
                           t_other, torch.zeros_like(t_other))
-    occ = _anyhit(scene, cfg, so, l_dir, t_other, sort=True)
+    occ = _anyhit(scene, cfg, so, l_dir, t_other, sort=True, gated=gated)
     bsdf = brdf_ops.eval_combined_brdf(shading_n, l_dir, v, material, cfg.brdf)
     picked = pick_dir | pick_spot | pick_area
     if point_one is not None:
@@ -380,12 +400,13 @@ def _has_sky(scene, cfg: RenderConfig) -> bool:
 _CARRY = ("o", "d", "radiance", "throughput", "alive", "primary_t")
 
 
-def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
-           depth: int, debug: dict | None = None) -> dict:
-    """The shading block of one vertex for a slice where some live lane hit:
-    refine, sky on the missed lanes, emission + NEE, continuation. A
-    ``debug`` dict (``trace_paths(collect_debug=True)``) receives the
-    vertex's hit, material and lighting state per lane."""
+def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
+           depth: int, debug: dict | None = None, gated: bool = True) -> dict:
+    """The shading block of one vertex for a slice where some live lane hit
+    (any slice, with ``gated`` False): refine, sky on the missed lanes,
+    emission + NEE, continuation. A ``debug`` dict
+    (``trace_paths(collect_debug=True)``) receives the vertex's hit,
+    material and lighting state per lane."""
     o, d = lanes["o"], lanes["d"]
     radiance, throughput = lanes["radiance"], lanes["throughput"]
     alive, primary_t = lanes["alive"], lanes["primary_t"]
@@ -422,7 +443,7 @@ def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
 
     vertex_rad = throughput * material.emissive
     dl = direct_lighting(scene, cfg, point, shad_n, v, material, pixel_id,
-                         key, sample, depth, alive=alive)
+                         key, sample, depth, alive=alive, gated=gated)
     vertex_rad = vertex_rad + throughput * dl
 
     last = depth == cfg.bounces - 1
@@ -503,22 +524,27 @@ def _dead_skip(lanes: dict, depth: int) -> dict:
     return out
 
 
-def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key: int, sample: int,
-           depth: int, alive_known: bool = False) -> dict:
+def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
+           depth: int, alive_known: bool = False, gated: bool = True) -> dict:
     """The post-hit gate of one slice: dead -> pass-through, no hit ->
     miss bookkeeping, else the shading block. ``alive_known``: the caller
     has already seen a live lane (the full-width slice after the bounce
-    gate), so that host check is not repeated."""
-    if not alive_known and not host_read("alive_in", lanes["alive_in"].any()):
-        return _dead_skip(lanes, depth)
-    if not host_read("found0", lanes["found0"].any()):
-        return _skip_shade(scene, cfg, lanes, depth)
-    return _shade(scene, cfg, packs, lanes, key, sample, depth)
+    gate), so that host check is not repeated. ``gated`` False: the
+    shading block, whatever the slice holds."""
+    if gated:
+        if not alive_known and not host_read("alive_in", lanes["alive_in"].any()):
+            return _dead_skip(lanes, depth)
+        if not host_read("found0", lanes["found0"].any()):
+            return _skip_shade(scene, cfg, lanes, depth)
+    return _shade(scene, cfg, packs, lanes, key, sample, depth, gated=gated)
 
 
-def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
-                collect_debug: bool = False):
+def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key, sample: int,
+                collect_debug: bool = False, gated: bool = True):
     """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit).
+    ``key`` is an integer seed or a ``rng.SeedTable``; ``gated`` False takes
+    the host gates away (module docstring), and refuses ``shade_tile``, the
+    debug tap and ring resharding, whose slices and collectives need them.
 
     The closest-hit traversal runs at full width every bounce; the shading
     block after it runs once at full width, or, with ``cfg.shade_tile > 0``,
@@ -549,15 +575,18 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
     # a lane's result depends on its ray and pixel id, not on the rank that
     # traces it (up to the bf16 engine's exact ties, which follow the
     # batch). Off on one rank and when debugging.
-    mesh = (lookup(cfg.reshard_axis) if cfg.reshard_axis is not None
-            and cfg.reshard_ndev > 1 and not collect_debug else None)
+    mesh = (lookup(cfg.reshard_axis) if resharded(cfg) and not collect_debug else None)
+    if not gated and (collect_debug or mesh is not None or cfg.shade_tile > 0):
+        raise ValueError("trace_paths(gated=False) runs one full-width slice "
+                         "(shade_tile 0), with no debug tap and no resharding")
 
     for depth in range(cfg.bounces):
         # bounce gate: nothing alive, carry unchanged. Off under resharding:
         # its predicate is the rank's own, and a rank that skipped the
         # bounce would miss its collectives while the others wait in them.
         # The post-hit gates in _gated hold no collective and stay.
-        if not collect_debug and mesh is None and not host_read("bounce_gate", alive.any()):
+        if (gated and not collect_debug and mesh is None
+                and not host_read("bounce_gate", alive.any())):
             continue
         pid = pixel_id
         if mesh is not None:
@@ -587,7 +616,7 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key: int, sample: int,
                                     alive_out=out["alive"], next_dir=out["d"]))
             elif S == 1:
                 out = _gated(scene, cfg, packs, lanes, key, sample, depth,
-                             alive_known=mesh is None)
+                             alive_known=mesh is None, gated=gated)
             else:
                 parts = [_gated(scene, cfg, packs,
                                 {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
@@ -643,13 +672,14 @@ def render_aov(scene, cfg: RenderConfig, o, d):
     return torch.where(ok, out, torch.zeros_like(out)), hit
 
 
-def render_sample(scene, cam, cfg: RenderConfig, key: int, sample: int,
-                  pixel_ids: torch.Tensor):
+def render_sample(scene, cam, cfg: RenderConfig, key, sample: int,
+                  pixel_ids: torch.Tensor, gated: bool = True):
     """One sample for a batch of pixels: primary ray at integer pixel
     coords (through the Panini projection when ``cfg.post_processed``),
     plus a jittered AA ray averaged 50/50 (both traced in one doubled
     batch, the second with pixel ids offset by n_pixels); an AOV mode
-    shades the primary ray's hit only. Returns (color (B,3), primary_t (B,))."""
+    shades the primary ray's hit only. ``key`` and ``gated``: see
+    ``trace_paths``. Returns (color (B,3), primary_t (B,))."""
     check_supported(cfg, scene)
     xs = torch.remainder(pixel_ids, cfg.width).to(torch.float32)
     ys = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
@@ -666,7 +696,7 @@ def render_sample(scene, cam, cfg: RenderConfig, key: int, sample: int,
         o = torch.cat([o1, o2])
         d = torch.cat([d1, d2])
         pid2 = torch.cat([pixel_ids, pixel_ids + cfg.n_pixels])
-        r, hit = trace_paths(scene, cfg, o, d, pid2, key, sample)
+        r, hit = trace_paths(scene, cfg, o, d, pid2, key, sample, gated=gated)
         return 0.5 * (r[:b] + r[b:]), hit.t[:b]
-    color, hit = trace_paths(scene, cfg, o1, d1, pixel_ids, key, sample)
+    color, hit = trace_paths(scene, cfg, o1, d1, pixel_ids, key, sample, gated=gated)
     return color, hit.t

@@ -6,12 +6,14 @@ of ``cfg.chunk_pixels`` (bounding live device memory) and folds it into the
 film. ``Renderer`` owns the film on one device, times each tick
 (``stats``), returns display images (post-processed on its device when
 ``cfg.post_processed``) and captures them to PNG. PyTorch runs eagerly, so
-there is no compiled frame function.
+there is no compiled frame function; on the card, a tick replays one chunk
+recorded as a CUDA graph instead (``render/graph.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -19,28 +21,32 @@ import torch
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig
 from physically_based_ray_tracer_tpu_torch.ops.tonemap import POST_PRESETS, post_process
 from physically_based_ray_tracer_tpu_torch.render import film as film_mod
+from physically_based_ray_tracer_tpu_torch.render.graph import ChunkGraph, graph_path
 from physically_based_ray_tracer_tpu_torch.render.integrator import (
     check_supported, render_sample)
 from physically_based_ray_tracer_tpu_torch.scene.scene import rebuild_scene
 from physically_based_ray_tracer_tpu_torch.utils import image as image_utils
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
-from physically_based_ray_tracer_tpu_torch.utils.profiling import annotate, host_read
+from physically_based_ray_tracer_tpu_torch.utils.profiling import (add_attrs, annotate,
+                                                                   host_read)
 from physically_based_ray_tracer_tpu_torch.utils.timer import (DeviceTimer, FrameStats,
                                                                ray_count)
 
 
-def _render_spp(scene, cam, cfg: RenderConfig, key: int, sample: int,
-                pixel_ids: torch.Tensor):
+def _render_spp(scene, cam, cfg: RenderConfig, key, sample: int,
+                pixel_ids: torch.Tensor, gated: bool = True):
     """render_sample averaged over cfg.samples_per_pixel in-frame samples
-    (sample index ``sample * spp + s``); the primary t is sample 0's."""
+    (sample index ``sample * spp + s``); the primary t is sample 0's.
+    ``key`` and ``gated``: see ``integrator.trace_paths``."""
     spp = max(1, cfg.samples_per_pixel)
     if spp == 1:
-        return render_sample(scene, cam, cfg, key, sample, pixel_ids)
+        return render_sample(scene, cam, cfg, key, sample, pixel_ids, gated=gated)
     acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
                       device=pixel_ids.device)
     t0 = None
     for s in range(spp):
-        c, t = render_sample(scene, cam, cfg, key, sample * spp + s, pixel_ids)
+        c, t = render_sample(scene, cam, cfg, key, sample * spp + s, pixel_ids,
+                             gated=gated)
         acc = acc + c
         if s == 0:
             t0 = t
@@ -55,10 +61,7 @@ def render_chunked(scene, cam, cfg: RenderConfig, key: int, sample: int,
     b = pixel_ids.shape[0]
     if b <= cfg.chunk_pixels:
         return _render_spp(scene, cam, cfg, key, sample, pixel_ids)
-    n_chunks = -(-b // cfg.chunk_pixels)
-    chunk = -(-b // n_chunks)
-    padded = chunk * n_chunks
-    ids = torch.cat([pixel_ids, pixel_ids[-1:].expand(padded - b)])
+    ids, n_chunks, chunk = _chunks(pixel_ids, cfg.chunk_pixels)
     colors, ts = [], []
     for c in range(n_chunks):
         col, t = _render_spp(scene, cam, cfg, key, sample,
@@ -66,6 +69,18 @@ def render_chunked(scene, cam, cfg: RenderConfig, key: int, sample: int,
         colors.append(col)
         ts.append(t)
     return torch.cat(colors)[:b], torch.cat(ts)[:b]
+
+
+def _chunks(pixel_ids: torch.Tensor, chunk_pixels: int):
+    """(ids, n_chunks, chunk): ``render_chunked``'s chunks, ``n_chunks`` of
+    ``chunk`` ids each, the ids edge-padded to fill them."""
+    b = pixel_ids.shape[0]
+    if b <= chunk_pixels:
+        return pixel_ids, 1, b
+    n_chunks = -(-b // chunk_pixels)
+    chunk = -(-b // n_chunks)
+    ids = torch.cat([pixel_ids, pixel_ids[-1:].expand(chunk * n_chunks - b)])
+    return ids, n_chunks, chunk
 
 
 def frame_fn(scene, cam, film: film_mod.FilmState, key: int, sample: int,
@@ -120,7 +135,17 @@ class Renderer:
     returned with ``scene``; with it, ``tick(key, instances)`` moves the
     instances inside the tick (the game loop's pose sync and TLAS rebuild
     before the render), and the film keeps its per-pixel depth-keyed
-    reset."""
+    reset.
+
+    Where ``graph.graph_path`` allows (the card, the dense engines, the
+    shaded image), the first tick records one chunk of the frame as a CUDA
+    graph (``graph.ChunkGraph``) and every tick replays it for each chunk:
+    its images are the eager path's, bit for bit. A new scene or camera of
+    the same layout (``tick``'s moved instances, an edited light or camera)
+    is copied into the recording's inputs; another layout or another
+    ``config`` is recorded anew. The ``pbrt.tick`` span's attributes count
+    ``chunks``, ``replays`` (the chunks replayed), ``captures`` (1 where the
+    tick recorded) and ``refreshed`` (the tensors copied in)."""
 
     def __init__(self, scene, camera, config: RenderConfig,
                  device=DEFAULT_DEVICE, handle=None):
@@ -138,6 +163,7 @@ class Renderer:
         else:
             self._pixel_ids_np = np.arange(config.n_pixels, dtype=np.int32)
         self._pixel_ids = torch.from_numpy(self._pixel_ids_np).to(self.device)
+        self._graph = None
 
     def reset_accumulation(self):
         self.film = film_mod.FilmState.zeros(self.config.n_pixels,
@@ -164,8 +190,7 @@ class Renderer:
                 with annotate("pbrt.rebuild"):
                     self.scene = rebuild_scene(self.scene, self.handle, instances,
                                                device=self.device)
-            color, primary_t = render_chunked(self.scene, self.camera, self.config, key,
-                                              self.sample, self._pixel_ids)
+            color, primary_t = self._render(key)
             with annotate("pbrt.film"):
                 self.film, avg = film_mod.update(self.film, color, primary_t, self.config)
                 avg = host_read("film_fetch", avg)
@@ -175,6 +200,33 @@ class Renderer:
                     self.config, self.config.n_pixels,
                     n_point_lights=self.scene.lights.n_point))
                 return self._assemble(avg)
+
+    def _render(self, key: int):
+        """The frame's (color, primary t): the recorded chunk replayed where
+        ``graph_path`` allows (recorded first where there is no recording
+        that takes this scene, camera and config), else ``render_chunked``;
+        the counts go to the tick's span."""
+        cfg, b = self.config, self._pixel_ids.shape[0]
+        if not graph_path(cfg, self.device):
+            self._graph = None
+            add_attrs(chunks=-(-b // cfg.chunk_pixels), replays=0, captures=0, refreshed=0)
+            return render_chunked(self.scene, self.camera, cfg, key, self.sample,
+                                  self._pixel_ids)
+        g, captures, refreshed = self._graph, 0, 0
+        if g is not None and g.accepts(self.scene, self.camera, cfg):
+            refreshed = g.refresh(self.scene, self.camera)
+        else:
+            self._graph = None          # the old recording's memory goes first
+            g = self._graph = ChunkGraph(functools.partial(_render_spp, gated=False),
+                                         self.scene, self.camera, cfg,
+                                         *_chunks(self._pixel_ids, cfg.chunk_pixels), b,
+                                         self.device)
+            g.capture()
+            captures = 1
+        out = g.run(key, self.sample)
+        add_attrs(chunks=g.n_chunks, replays=0 if g.graph is None else g.n_chunks,
+                  captures=captures, refreshed=refreshed)
+        return out
 
     def _assemble(self, avg_flat: np.ndarray) -> np.ndarray:
         """Scatter film-order samples back into raster order, post-process

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
-from physically_based_ray_tracer_tpu_torch.utils.math import cross, length, normalize
+from physically_based_ray_tracer_tpu_torch.utils.math import (constant, cross, length,
+                                                              normalize)
 
 PI = 3.141592653589
 
@@ -52,8 +53,7 @@ class CameraBasis:
 
 def camera_basis(cam: Camera, aspect: float) -> CameraBasis:
     """Basis + screen-plane corners."""
-    tmp_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                          device=cam.pos.device)
+    tmp_up = constant([0.0, 1.0, 0.0], cam.pos)
     ahead = normalize(cam.target - cam.pos)
     right = normalize(cross(ahead, tmp_up))
     up = normalize(cross(right, ahead))

@@ -2,13 +2,29 @@
 
 Torch helpers broadcast over ``(..., 3)`` tensors; quaternions are ``(..., 4)``
 in ``(x, y, z, w)`` order. The 4x4 transform helpers are host-side numpy, as
-in the JAX package, because they feed the scene builders.
+in the JAX package, because they feed the scene builders. ``constant`` hands
+out the small constant vectors of the shading code, made once per device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+def constant(values, like: torch.Tensor) -> torch.Tensor:
+    """``values`` as a tensor of ``like``'s dtype on its device, made on the
+    first call and shared by every later one, so read-only: a copy from the
+    host cannot be recorded into a CUDA graph, a tensor already there is
+    read in place."""
+    return _constant(tuple(values), like.dtype, like.device)
+
+
+@functools.cache
+def _constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,14 +83,12 @@ def quat_rotation_to_z(v: torch.Tensor) -> torch.Tensor:
                      1.0 + v[..., 2]], dim=-1)
     qn = normalize(q)
     flip = v[..., 2:3] < -0.99999
-    identity_flip = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=v.dtype,
-                                 device=v.device).expand(qn.shape)
+    identity_flip = constant([1.0, 0.0, 0.0, 0.0], v).expand(qn.shape)
     return torch.where(flip, identity_flip, qn)
 
 
 def quat_invert(q: torch.Tensor) -> torch.Tensor:
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * constant([-1.0, -1.0, -1.0, 1.0], q)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

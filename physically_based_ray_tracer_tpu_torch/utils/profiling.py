@@ -39,6 +39,11 @@ The program's spans and counters:
   summed on the device, so no sync) to its count of kept slots; its
   ``reset`` is the difference, the slots whose running mean restarted.
 
+``paused()`` turns all of it off for a block, whatever the profiler does:
+no span, no count in a span (``READS`` still counts). Code recorded into
+a CUDA graph runs inside it, so that no device sum of a counter and no
+host read is recorded with it.
+
 ``spans()`` returns the records as dicts, with ``live`` and ``reset`` read
 back from the device (a sync: call it after the work); ``reset()`` clears
 the buffer and the counts. One process has one stack of open spans: the
@@ -65,7 +70,7 @@ _FIELDS = ("name", "parent", "tick", "start_ns", "end_ns", "reads", "wait_ns",
 _DEVICE_SUMS = ("live", "kept")     # record lists holding device scalars until spans()
 _records: list["_Record"] = []
 _open: list["_Record | None"] = []      # open spans, innermost last (None: dropped)
-_state = {"dropped": 0, "ticks": 0}
+_state = {"dropped": 0, "ticks": 0, "paused": 0}
 
 
 class _Record:
@@ -145,7 +150,9 @@ def _decorated(name: str, fn):
 
 
 def _innermost() -> "_Record | None":
-    """The innermost open span that holds a record."""
+    """The innermost open span that holds a record (None while paused)."""
+    if _state["paused"]:
+        return None
     for rec in reversed(_open):
         if rec is not None:
             return rec
@@ -157,7 +164,7 @@ def annotate(name: str, **attrs):
     around each call of a function (a decorator; then by name alone).
     ``attrs`` (e.g. ``depth``) are kept in the record. Records only while a
     torch profiler records; see the module docstring."""
-    if not torch.autograd._profiler_enabled():
+    if _state["paused"] or not torch.autograd._profiler_enabled():
         off = _NO_SPANS.get(name)
         if off is None:
             off = _NO_SPANS[name] = _NoSpan(name)
@@ -177,6 +184,17 @@ def host_read(site: str, x: torch.Tensor):
         rec.wait_ns += time.time_ns() - t0
         rec.reads += 1
     return out
+
+
+@contextlib.contextmanager
+def paused():
+    """No span opens and no span counts inside the block (see the module
+    docstring)."""
+    _state["paused"] += 1
+    try:
+        yield
+    finally:
+        _state["paused"] -= 1
 
 
 def add_attrs(**attrs) -> None:

@@ -7,10 +7,13 @@ Threefry-2x32 reproduction of ``jax.random.key`` / ``fold_in`` / ``bits``
 (with JAX's default ``jax_threefry_partitionable=True``). Only the per-lane
 PCG + Wang hashes run in torch.
 
-``key`` is the integer seed that ``jax.random.key(key)`` would take. Torch has
-no full uint32 arithmetic, so the per-lane hashes run in int64 and mask to 32
-bits after every step: the low 32 bits of a wrapped int64 product are exact
-because every product here stays below 2^62.
+``key`` is the integer seed that ``jax.random.key(key)`` would take, or a
+``SeedTable``: the stream seeds of one frame held on the device, for a CUDA
+graph that must not bake them in as constants (``render/graph.py``). Both
+give the same bits. Torch has no full uint32 arithmetic, so the per-lane
+hashes run in int64 and mask to 32 bits after every step: the low 32 bits of
+a wrapped int64 product are exact because every product here stays below
+2^62.
 """
 
 from __future__ import annotations
@@ -69,8 +72,72 @@ def stream_seed(key: int, sample: int, bounce: int, purpose: int) -> int:
     k = make_key(key)
     for d in (sample, bounce, int(purpose)):
         k = fold_in(k, d)
+    return _final(k)
+
+
+def _final(k: tuple[int, int]) -> int:
     hi, lo = threefry2x32(k, (0, 0))
     return hi ^ lo
+
+
+class SeedTable:
+    """The stream seeds of one frame on ``device``, for code recorded once
+    and replayed every frame (a CUDA graph): passed where a ``key`` goes,
+    ``seed(sample, bounce, purpose)`` hands out a 0-d int64 view of one slot
+    of a device table (the same view for the same stream) and remembers the
+    stream; ``fill(key, base)`` writes each remembered stream's
+    ``stream_seed(key, base + sample, bounce, purpose)`` with one copy from
+    host memory (pinned on a CUDA device), queued on the current stream.
+    ``sample`` is thus the offset inside the frame. A stream first drawn
+    after the last ``fill`` holds 0 until the next. The table holds
+    ``capacity`` streams."""
+
+    def __init__(self, capacity: int, device):
+        device = torch.device(device)
+        self.table = torch.zeros((capacity,), dtype=torch.int64, device=device)
+        self._host = torch.zeros((capacity,), dtype=torch.int64,
+                                 pin_memory=device.type == "cuda")
+        self.streams: dict[tuple[int, int, int], int] = {}
+        self._copied = None
+
+    def seed(self, sample: int, bounce: int, purpose: int) -> torch.Tensor:
+        stream = (sample, bounce, int(purpose))
+        slot = self.streams.get(stream)
+        if slot is None:
+            slot = len(self.streams)
+            if slot == self.table.shape[0]:
+                raise ValueError(f"SeedTable: more than {slot} streams")
+            self.streams[stream] = slot
+        return self.table[slot]
+
+    def fill(self, key: int, base: int) -> None:
+        """Every remembered stream's seed at ``key`` and in-frame sample
+        ``base + sample``; the fold-ins shared by streams are done once."""
+        if self._copied is not None:
+            self._copied.synchronize()      # the last copy has read the host buffer
+        host = self._host.numpy()
+        by_sample: dict[int, tuple[int, int]] = {}
+        by_bounce: dict[tuple[int, int], tuple[int, int]] = {}
+        for (sample, bounce, purpose), slot in self.streams.items():
+            k = by_bounce.get((sample, bounce))
+            if k is None:
+                ks = by_sample.get(sample)
+                if ks is None:
+                    ks = by_sample[sample] = fold_in(make_key(key), base + sample)
+                k = by_bounce[(sample, bounce)] = fold_in(ks, bounce)
+            host[slot] = _final(fold_in(k, purpose))
+        self.table.copy_(self._host, non_blocking=True)
+        if self.table.is_cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+
+def _seed(key, sample: int, bounce: int, purpose: int):
+    """A stream's seed: a Python int from an integer key, a device scalar
+    from a ``SeedTable``."""
+    if isinstance(key, SeedTable):
+        return key.seed(sample, bounce, purpose)
+    return stream_seed(key, sample, bounce, purpose)
 
 
 def _pcg_hash(x: torch.Tensor) -> torch.Tensor:
@@ -92,16 +159,16 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def uniform1(key: int, pixel_id: torch.Tensor, sample: int, bounce: int,
+def uniform1(key, pixel_id: torch.Tensor, sample: int, bounce: int,
              purpose: int) -> torch.Tensor:
     """One U[0,1) per lane, a pure function of (key, pixel_id, ids)."""
-    seed = stream_seed(key, sample, bounce, purpose)
+    seed = _seed(key, sample, bounce, purpose)
     h = _pcg_hash((pixel_id.to(torch.int64) & _M32) ^ seed)
     h = _wang_hash((h + seed) & _M32)
     return _bits_to_unit(h)
 
 
-def uniform2(key: int, pixel_id: torch.Tensor, sample: int, bounce: int,
+def uniform2(key, pixel_id: torch.Tensor, sample: int, bounce: int,
              purpose: int) -> torch.Tensor:
     """Two independent U[0,1) per lane, shape ``pixel_id.shape + (2,)``."""
     u1 = uniform1(key, pixel_id, sample, bounce, int(purpose) * 2 + 101)
