@@ -351,8 +351,8 @@ started together (into ``build/torch_kernels/``), then:
    frame at 1280x720 and on the game's 480x270 tick with the nine spheres
    orbiting (``Renderer.tick(key, instances)``), both bf16, the
    two-level layout, ``GRAPH_TICKS`` ticks of a Renderer whose ticks
-   replay the recorded chunk against as many of one held to the eager,
-   gated path (``graph_path`` refused): every film (accum, spp, dist) and
+   replay the recorded chunk against as many of one held to the eager
+   path, the same body (``graph_path`` refused): every film (accum, spp, dist) and
    image bit-equal, the last replayed tick recorded under
    ``torch.profiler`` (card and host) with the same result and its
    ``pbrt.tick`` span counting one replay a chunk, no capture, and copied

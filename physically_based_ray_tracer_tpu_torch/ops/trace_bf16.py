@@ -48,7 +48,8 @@ from physically_based_ray_tracer_tpu_torch.bvh.dense import (ABSENT, BF_ROWS,
 from physically_based_ray_tracer_tpu_torch.config import BVH_FAR
 from physically_based_ray_tracer_tpu_torch.ops import trace
 from physically_based_ray_tracer_tpu_torch.ops.intersect import Hit, safe_rcp
-from physically_based_ray_tracer_tpu_torch.utils.profiling import count_lanes, host_read
+from physically_based_ray_tracer_tpu_torch.ops.take_rows import take_rows
+from physically_based_ray_tracer_tpu_torch.utils.profiling import count_lanes
 
 APRON = 0.02            # barycentric accept apron (see _bf16_mt)
 GLO_SMEM_LIMIT = 8192   # the reference's group-count limit of the bf16 engine
@@ -662,11 +663,6 @@ def _winner_slot(gk):
     return g, c, slot
 
 
-def _take(x, idx):
-    """``jnp.take(x, idx, mode="clip")``."""
-    return x[idx.clamp(0, x.shape[0] - 1)]
-
-
 def _decode_fast(dbvh: DenseBVH, tb, gk, inst) -> Hit:
     """Winner prim only (one gather per ray from ``pids_c``) and the
     kernel's bf16 t, u = v = 0: for callers that refine the hit themselves
@@ -675,14 +671,14 @@ def _decode_fast(dbvh: DenseBVH, tb, gk, inst) -> Hit:
     g, c, slot = _winner_slot(gk)
     if dbvh.pids_c is not None:
         C = dbvh.pids_c.shape[0] // (dbvh.groups_bf.shape[0] // BF_ROWS)
-        prim_local = torch.round(_take(dbvh.pids_c, g * C + (slot & (c - 1))))
+        prim_local = torch.round(take_rows(dbvh.pids_c, g * C + (slot & (c - 1))))
     else:
         gflat = dbvh.groups.reshape(-1)
-        prim_local = torch.round(_take(gflat, (g * GROUP_ROWS + 9) * LEAF_W + slot))
+        prim_local = torch.round(take_rows(gflat, (g * GROUP_ROWS + 9) * LEAF_W + slot))
     prim_local = prim_local.to(torch.int32)
     found = (gk >= 0) & (prim_local >= 0)
     inst0 = inst.clamp(min=0)
-    base = _take(dbvh.prim_base, inst0.long())
+    base = take_rows(dbvh.prim_base, inst0.long())
     zero = torch.zeros((B,), dtype=torch.float32, device=tb.device)
     return Hit(t=torch.where(found, tb, torch.full_like(tb, BVH_FAR)),
                u=zero, v=zero.clone(),
@@ -698,13 +694,13 @@ def _decode_refine(dbvh: DenseBVH, o, d, t_max, tb, gk, inst) -> Hit:
     B = o.shape[0]
     g, _, slot = _winner_slot(gk)
     gflat = dbvh.groups.reshape(-1)
-    row = lambda i: _take(gflat, (g * GROUP_ROWS + i) * LEAF_W + slot)
+    row = lambda i: take_rows(gflat, (g * GROUP_ROWS + i) * LEAF_W + slot)
     prims = torch.round(row(9)).to(torch.int32)
     v0 = torch.stack([row(0), row(1), row(2)], dim=-1)
     e1 = torch.stack([row(3), row(4), row(5)], dim=-1)
     e2 = torch.stack([row(6), row(7), row(8)], dim=-1)
     if dbvh.two_level:
-        a = _take(dbvh.inst16.reshape(-1, INST_F), inst.clamp(min=0).long())
+        a = take_rows(dbvh.inst16.reshape(-1, INST_F), inst.clamp(min=0).long())
         A = a[:, 0:12].reshape(B, 3, 4)
         oo = torch.einsum("bij,bj->bi", A[:, :, 0:3], o) + A[:, :, 3]
         dd = torch.einsum("bij,bj->bi", A[:, :, 0:3], d)
@@ -724,7 +720,7 @@ def _decode_refine(dbvh: DenseBVH, o, d, t_max, tb, gk, inst) -> Hit:
     u = torch.clamp(u, 0.0, 1.0)
     v = torch.minimum(torch.clamp(v, min=0.0), torch.clamp(1.0 - u, min=0.0))
     inst0 = inst.clamp(min=0)
-    base = _take(dbvh.prim_base, inst0.long())
+    base = take_rows(dbvh.prim_base, inst0.long())
     zero = torch.zeros_like(u)
     return Hit(t=torch.where(found, t, torch.full_like(t, BVH_FAR)),
                u=torch.where(found, u, zero), v=torch.where(found, v, zero),
@@ -756,17 +752,14 @@ def intersect_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
     return _decode(dbvh, tb, gk, inst, refine, o, d, t_max)
 
 
-def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted,
-                       gated=True):
+def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted):
     """Occluded = certain, or uncertain and not certain with an exact f32
-    occlusion (kernel B1) on those lanes alone (t_max masked to 0 elsewhere);
-    skipped when no lane needs it (a host read), unless ``gated`` is False:
-    then the retest always runs, and with no lane needing it gives ``cert``.
-    ``presorted`` rays are traced in the order given, so that lanes without
-    a retest leave at the root together; other rays are co-sorted first."""
+    occlusion (kernel B1) on those lanes alone (t_max masked to 0 elsewhere).
+    The retest always runs, with no host read; where no lane needs it, it
+    gives ``cert``. ``presorted`` rays are traced in the order given, so
+    that lanes without a retest leave at the root together; other rays are
+    co-sorted first."""
     need = unc & ~cert
-    if gated and not host_read("retest", need.any()):
-        return cert
     tm = torch.where(need, t_max, torch.zeros_like(t_max))
     if presorted:
         occ = trace.intersect_any_dense(dbvh, o, d, tm)
@@ -775,12 +768,11 @@ def _resolve_uncertain(dbvh: DenseBVH, o, d, t_max, cert, unc, presorted,
     return cert | (need & occ)
 
 
-def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max, *, gated=True) -> torch.Tensor:
+def intersect_any_bf16(dbvh: DenseBVH, o, d, t_max) -> torch.Tensor:
     """Occlusion: kernel-certain (inside a triangle by more than the apron)
-    or an exact f32 verdict on the apron-uncertain lanes (``gated``: see
-    ``_resolve_uncertain``)."""
+    or an exact f32 verdict on the apron-uncertain lanes."""
     cert, unc = _call_bf16(dbvh, o, d, t_max, closest=False)
-    return _resolve_uncertain(dbvh, o, d, t_max, cert, unc, presorted=False, gated=gated)
+    return _resolve_uncertain(dbvh, o, d, t_max, cert, unc, presorted=False)
 
 
 def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
@@ -795,11 +787,11 @@ def sorted_closest_bf16(dbvh: DenseBVH, o, d, t_max=None, *,
     return Hit(*(trace._unsort(perm, x) for x in hit))
 
 
-def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max, *, sort_mode="octant_major",
-                    gated=True) -> torch.Tensor:
+def sorted_any_bf16(dbvh: DenseBVH, o, d, t_max, *,
+                    sort_mode="octant_major") -> torch.Tensor:
     """Occlusion on sorted rays; the uncertain lanes are resolved in sorted
     order (no second sort), then the verdict is scattered back."""
     perm, o_s, d_s, tm_s = trace._cosort_rays(dbvh, o, d, t_max, sort_mode)
     cert, unc = _call_bf16(dbvh, o_s, d_s, tm_s, closest=False)
-    occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True, gated=gated)
+    occ = _resolve_uncertain(dbvh, o_s, d_s, tm_s, cert, unc, presorted=True)
     return trace._unsort(perm, occ)

@@ -58,7 +58,7 @@ from physically_based_ray_tracer_tpu_torch.ops.leaf_mt import (_gather_rows,
                                                                leaf_columns,
                                                                mt_dense,
                                                                ordered_take)
-from physically_based_ray_tracer_tpu_torch.ops.trace import morton_key
+from physically_based_ray_tracer_tpu_torch.ops.trace import _unsort, morton_key
 from physically_based_ray_tracer_tpu_torch.ops.wave_level import WAVES, _tile_update
 from physically_based_ray_tracer_tpu_torch.ops.wave_scan import BIG, DONE, _interval_slab
 
@@ -449,12 +449,6 @@ def _scene_bounds(bvh: BVHArrays):
     lo = torch.minimum(root[0:3], root[6:9])
     hi = torch.maximum(root[3:6], root[9:12])
     return lo, hi
-
-
-def _unsort(perm, x):
-    out = torch.empty_like(x)
-    out[perm] = x
-    return out
 
 
 def sorted_closest(fn, bvh: BVHArrays, o, d, t_max=None, **kw) -> Hit:

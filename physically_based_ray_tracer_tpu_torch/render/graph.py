@@ -3,8 +3,8 @@ chunk of every later frame (``Renderer.tick``).
 
 Every chunk of a frame has one shape (``render_chunked`` edge-pads the
 last), so one recording of the chunk's body serves the whole frame. The
-body is the integrator with its host gates taken away
-(``trace_paths(gated=False)``), whose launches read nothing on the host;
+body is the eager path's own (``renderer._render_spp``): the integrator's
+full-width chunk reads nothing on the host (``render/integrator.py``);
 what varies from chunk to chunk and frame to frame lives in device tensors
 at fixed addresses, which the recording reads:
 
@@ -45,12 +45,13 @@ _COUNTERS = (trace.LAUNCHES, trace_bf16.LAUNCHES)
 
 def graph_path(cfg: RenderConfig, device) -> bool:
     """Whether a tick of ``cfg`` on ``device`` replays a recorded chunk: on
-    a CUDA device, for the shaded image (no AOV view), on the dense engines
-    B1 and B2 (``traversal="pallas"``), whose wrappers read nothing on the
-    host once the gates are gone, with no ring resharding and no shade tiles
-    (their collectives and per-slice gates need the host). Every other tick
-    runs the eager, gated path; so does the debug tap, which never goes
-    through a tick (``render/debugger.py``)."""
+    a CUDA device, for the shaded image, on the dense engines B1 and B2
+    (``traversal="pallas"``), whose wrappers read nothing on the host, with
+    no ring resharding (it reads the ranks' live counts on the host) and no
+    shade tiles (each slice keeps its two host gates). The AOV views and the
+    other engines have no recording. Every other tick runs the same body
+    eagerly; so does the debug tap, which never goes through a tick
+    (``render/debugger.py``)."""
     return (torch.device(device).type == "cuda" and cfg.rendering_mode == RenderMode.BRDF
             and cfg.traversal == "pallas" and not resharded(cfg) and cfg.shade_tile == 0)
 
@@ -101,12 +102,12 @@ def _stack_cap() -> int:
 
 
 class ChunkGraph:
-    """``body(scene, camera, cfg, seeds, 0, ids)`` (the ungated
-    ``_render_spp``) over one chunk of ``chunk`` pixel ids, recorded by
-    ``capture`` and run by ``run`` for each chunk of ``ids`` (the frame's
-    pixel ids, edge-padded to ``n_chunks * chunk``; the first ``n_pixels``
-    are the frame's). Without a recording (on the CPU, where there is no
-    CUDA graph), ``run`` runs the body as it is, chunk by chunk."""
+    """``body(scene, camera, cfg, seeds, 0, ids)`` (``_render_spp``) over
+    one chunk of ``chunk`` pixel ids, recorded by ``capture`` and run by
+    ``run`` for each chunk of ``ids`` (the frame's pixel ids, edge-padded
+    to ``n_chunks * chunk``; the first ``n_pixels`` are the frame's).
+    Without a recording (on the CPU, where there is no CUDA graph), ``run``
+    runs the body as it is, chunk by chunk."""
 
     def __init__(self, body, scene, camera, cfg: RenderConfig, ids: torch.Tensor,
                  n_chunks: int, chunk: int, n_pixels: int, device):

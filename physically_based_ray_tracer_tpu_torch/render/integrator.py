@@ -3,29 +3,27 @@
 Every path vertex does one closest-hit traversal, one shading/NEE block with
 one batched occlusion traversal (plus the NP-ray point pass when
 ``one_shadow_ray`` is off), and one continuation sample. Lanes die by
-masking. The JAX package's ``lax.scan`` over bounces is a Python loop here,
-and its ``lax.cond`` gates are host checks: a bounce with no live lane is
-skipped (``alive.any()``), and after the closest-hit pass the shading block
-is gated per slice of the wavefront (``_gated``: one slice at full width,
-or ``_snap_subtiles`` slices with ``shade_tile > 0``): a slice with no live
-lane passes through, and a slice where no live lane hit anything only
-settles the miss bookkeeping (sky radiance, primary depth). None of the
-gates changes a result.
+masking. The JAX package's ``lax.scan`` over bounces is a Python loop here.
 
-``gated=False`` (``trace_paths``, ``render_sample``) takes the three gates of
-a full-width chunk away, for a body recorded once as a CUDA graph, which
-cannot read the device on the host (``render/graph.py``): every bounce
-runs the closest-hit pass and the whole shading block, and the bf16
-engine's retest always launches (``trace_bf16._resolve_uncertain``). The
-radiance and primary depth are the gated path's, bit for bit: a dead or
-missed lane's radiance takes ``+ 0`` through the block's masked sums, and a
-dead lane traces with t_max 0 and sorts behind every live lane. The
-per-slice gates of ``shade_tile``, the debug tap and ring resharding keep
-their host reads and refuse it.
+A full-width chunk (``shade_tile`` 0) runs one body on every device and
+engine, eager or recorded as a CUDA graph (``render/graph.py``), and reads
+nothing on the host: every bounce runs the closest-hit pass and the whole
+shading block, and the bf16 engine's retest always launches
+(``trace_bf16._resolve_uncertain``). The JAX package's full-width
+``lax.cond`` gates (a bounce with no live lane, a wavefront where no live
+lane hit anything) skip that work instead; this is a deliberate
+difference, and the results are equal: a dead or missed lane's radiance
+takes ``+ 0`` through the block's masked sums, and a dead lane traces with
+t_max 0 and sorts behind every live lane. With ``shade_tile > 0`` the
+shading block runs once per slice of ``_snap_subtiles`` slices, each behind
+the JAX package's two sub-tile gates, which are host checks here
+(``_gated``): a slice with no live lane passes through, and a slice where
+no live lane hit anything only settles the miss bookkeeping (sky radiance,
+primary depth). Neither gate changes a result.
 
 A missed live lane adds ``throughput * sample_skybox(sky, d)`` when
 ``cfg.skybox`` is set and the scene has a sky image, in the shading block
-(lanes that missed, after the bf16-apron guard) and in the all-miss
+(lanes that missed, after the bf16-apron guard) and in a slice's all-miss
 shortcut alike. AOV modes (``rendering_mode`` other than BRDF) shade the
 primary hit only (``render_aov``); ``post_processed`` casts the primary
 rays through the Panini projection.
@@ -58,14 +56,13 @@ which engine ran. Options the port does not carry raise
 With ``reshard_axis`` set (``parallel/shard.py::sharded_frame(...,
 reshard_block=N)``), each bounce donates surplus live lanes to the next
 rank of that axis's process group before the closest-hit pass and routes
-their results home after the shading block (``parallel/resharding.py``);
-the bounce gate is then off, so that every rank joins every bounce's
-collectives.
+their results home after the shading block (``parallel/resharding.py``),
+whose live counts are read on the host.
 
 Tracing (``utils/profiling.py``, on while a torch profiler records): each
 bounce's closest-hit pass is a ``pbrt.closest`` span and its post-hit block
 a ``pbrt.shade`` span (both with the bounce's ``depth``), each occlusion
-pass a ``pbrt.occlusion`` span; the gates read the device through
+pass a ``pbrt.occlusion`` span; the sub-tile gates read the device through
 ``host_read``.
 """
 
@@ -189,10 +186,9 @@ def _wave_kw(cfg: RenderConfig) -> dict:
     return dict(_packet_kw(cfg), dense=cfg.dense, shrink=cfg.wave_shrink)
 
 
-def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False, gated=True) -> torch.Tensor:
+def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False) -> torch.Tensor:
     """Occlusion of each ray; the rays and t_max are detached, as in
-    _closest. Every call is a ``pbrt.occlusion`` span. ``gated``: the bf16
-    engine's retest gate (module docstring)."""
+    _closest. Every call is a ``pbrt.occlusion`` span."""
     with annotate("pbrt.occlusion"):
         o, d, t_max = _detached(o, d, t_max)
         sort = sort and cfg.sort_rays
@@ -211,7 +207,6 @@ def _anyhit(scene, cfg: RenderConfig, o, d, t_max, sort=False, gated=True) -> to
             fn = trace_rows.sorted_rows_any if sort else trace_rows.rows_any_dense
         elif _use_bf16(cfg, scene.dense):
             fn = trace_bf16.sorted_any_bf16 if sort else trace_bf16.intersect_any_bf16
-            return fn(scene.dense, o, d, t_max, gated=gated)
         else:
             fn = trace.sorted_any_dense if sort else trace.intersect_any_dense
         return fn(scene.dense, o, d, t_max)
@@ -239,10 +234,10 @@ def _select(onehot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
-                    pixel_id, key, sample: int, depth: int, alive=None, gated=True):
+                    pixel_id, key, sample: int, depth: int, alive=None):
     """Stochastic next-event estimation; returns the vertex's radiance
     contribution (throughput not applied). ``key``: an integer seed or a
-    ``rng.SeedTable``; ``gated``: the retest gate of the occlusion passes."""
+    ``rng.SeedTable``."""
     lights = scene.lights
     B = point.shape[0]
     zeros = torch.zeros((B, 3), dtype=point.dtype, device=point.device)
@@ -303,8 +298,7 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
             keep = (pick_point & live)[:, None] & (torch.sum(contrib, dim=-1) > 0)
             tmax = torch.where(keep, shadow_len - EPSILON,
                                torch.zeros_like(shadow_len)).transpose(0, 1).reshape(np_ * B)
-            occ = _anyhit(scene, cfg, so, sd, tmax, sort=True,
-                          gated=gated).reshape(np_, B).transpose(0, 1)
+            occ = _anyhit(scene, cfg, so, sd, tmax, sort=True).reshape(np_, B).transpose(0, 1)
             visible = (~occ) & pick_point[:, None]
             point_contrib = torch.sum(torch.where(visible[..., None], contrib,
                                                   torch.zeros_like(contrib)), dim=1)
@@ -370,7 +364,7 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
     # zero-contribution shadow rays cannot change the result: mask them off
     t_other = torch.where(live & (torch.sum(contrib_other, dim=-1) > 0),
                           t_other, torch.zeros_like(t_other))
-    occ = _anyhit(scene, cfg, so, l_dir, t_other, sort=True, gated=gated)
+    occ = _anyhit(scene, cfg, so, l_dir, t_other, sort=True)
     bsdf = brdf_ops.eval_combined_brdf(shading_n, l_dir, v, material, cfg.brdf)
     picked = pick_dir | pick_spot | pick_area
     if point_one is not None:
@@ -380,7 +374,7 @@ def direct_lighting(scene, cfg: RenderConfig, point, shading_n, v, material,
 
 
 def _snap_subtiles(B: int, target_w: int) -> int:
-    """Sub-tile count for the gated shading block: the divisor of B whose
+    """Sub-tile count of the shading block: the divisor of B whose
     quotient is nearest ``target_w`` (cfg.shade_tile). 1 = full width
     (disabled, or B too small to split)."""
     if target_w <= 0 or B <= target_w:
@@ -401,10 +395,10 @@ _CARRY = ("o", "d", "radiance", "throughput", "alive", "primary_t")
 
 
 def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
-           depth: int, debug: dict | None = None, gated: bool = True) -> dict:
-    """The shading block of one vertex for a slice where some live lane hit
-    (any slice, with ``gated`` False): refine, sky on the missed lanes,
-    emission + NEE, continuation. A ``debug`` dict
+           depth: int, debug: dict | None = None) -> dict:
+    """The shading block of one vertex, whatever the slice holds (dead and
+    missed lanes add nothing): refine, sky on the missed lanes, emission +
+    NEE, continuation. A ``debug`` dict
     (``trace_paths(collect_debug=True)``) receives the vertex's hit,
     material and lighting state per lane."""
     o, d = lanes["o"], lanes["d"]
@@ -443,7 +437,7 @@ def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
 
     vertex_rad = throughput * material.emissive
     dl = direct_lighting(scene, cfg, point, shad_n, v, material, pixel_id,
-                         key, sample, depth, alive=alive, gated=gated)
+                         key, sample, depth, alive=alive)
     vertex_rad = vertex_rad + throughput * dl
 
     last = depth == cfg.bounces - 1
@@ -501,8 +495,9 @@ def _shade(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
 
 
 def _skip_shade(scene, cfg: RenderConfig, lanes: dict, depth: int) -> dict:
-    """No lane of the slice hit anything: every live lane missed. Settle the
-    miss bookkeeping (sky radiance, primary depth) and kill the slice."""
+    """A ``shade_tile`` slice where no lane hit anything: every live lane
+    missed. Settle the miss bookkeeping (sky radiance, primary depth) and
+    kill the slice."""
     out = {k: lanes[k] for k in _CARRY}
     if depth == 0:
         out["primary_t"] = lanes["hit_t"]
@@ -516,8 +511,9 @@ def _skip_shade(scene, cfg: RenderConfig, lanes: dict, depth: int) -> dict:
 
 
 def _dead_skip(lanes: dict, depth: int) -> dict:
-    """Nothing alive in the slice: pass-through (the primary-depth settle is
-    the identity from bounce 1 on, where alone a dead slice can occur)."""
+    """Nothing alive in the ``shade_tile`` slice: pass-through (the
+    primary-depth settle is the identity from bounce 1 on, where alone a
+    dead slice can occur)."""
     out = {k: lanes[k] for k in _CARRY}
     if depth == 0:
         out["primary_t"] = lanes["hit_t"]
@@ -525,41 +521,35 @@ def _dead_skip(lanes: dict, depth: int) -> dict:
 
 
 def _gated(scene, cfg: RenderConfig, packs, lanes: dict, key, sample: int,
-           depth: int, alive_known: bool = False, gated: bool = True) -> dict:
-    """The post-hit gate of one slice: dead -> pass-through, no hit ->
-    miss bookkeeping, else the shading block. ``alive_known``: the caller
-    has already seen a live lane (the full-width slice after the bounce
-    gate), so that host check is not repeated. ``gated`` False: the
-    shading block, whatever the slice holds."""
-    if gated:
-        if not alive_known and not host_read("alive_in", lanes["alive_in"].any()):
-            return _dead_skip(lanes, depth)
-        if not host_read("found0", lanes["found0"].any()):
-            return _skip_shade(scene, cfg, lanes, depth)
-    return _shade(scene, cfg, packs, lanes, key, sample, depth, gated=gated)
+           depth: int) -> dict:
+    """The sub-tile gates of one ``shade_tile`` slice (the JAX package's
+    ``lax.cond`` pair, host reads here): dead -> pass-through, no hit ->
+    miss bookkeeping, else the shading block."""
+    if not host_read("alive_in", lanes["alive_in"].any()):
+        return _dead_skip(lanes, depth)
+    if not host_read("found0", lanes["found0"].any()):
+        return _skip_shade(scene, cfg, lanes, depth)
+    return _shade(scene, cfg, packs, lanes, key, sample, depth)
 
 
 def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key, sample: int,
-                collect_debug: bool = False, gated: bool = True):
+                collect_debug: bool = False):
     """Trace a batch of paths to completion; returns (radiance (B,3), primary Hit).
-    ``key`` is an integer seed or a ``rng.SeedTable``; ``gated`` False takes
-    the host gates away (module docstring), and refuses ``shade_tile``, the
-    debug tap and ring resharding, whose slices and collectives need them.
+    ``key`` is an integer seed or a ``rng.SeedTable``.
 
     The closest-hit traversal runs at full width every bounce; the shading
-    block after it runs once at full width, or, with ``cfg.shade_tile > 0``,
-    once per slice of ``B / _snap_subtiles(B, shade_tile)`` lanes, each
-    behind its own gate (two host checks and its own sorted occlusion
-    pass), in order.
+    block after it runs once at full width with no gate (module
+    docstring), or, with ``cfg.shade_tile > 0``, once per slice of
+    ``B / _snap_subtiles(B, shade_tile)`` lanes, each behind its own gates
+    (two host checks and its own sorted occlusion pass), in order.
 
     ``collect_debug=True`` (the per-pixel debugger's tap) also returns a
     third output: a dict of per-bounce records stacked as (bounces, B, ...)
     (the JAX package's keys: the vertex's hit, material and lighting state,
     its ray, the hit instance, and the throughput, liveness and direction
-    leaving it). As in the JAX package, every bounce then runs the whole
-    shading block at full width with no gate (records exist for dead
-    lanes too); the radiance is the untapped integrator's. Without it the
-    frame runs exactly the untapped path."""
+    leaving it). Every bounce then runs the whole shading block at full
+    width, whatever ``shade_tile`` says (records exist for dead lanes too);
+    the radiance is the untapped integrator's."""
     check_supported(cfg, scene)
     B = o.shape[0]
     dev = o.device
@@ -576,18 +566,8 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key, sample: int,
     # traces it (up to the bf16 engine's exact ties, which follow the
     # batch). Off on one rank and when debugging.
     mesh = (lookup(cfg.reshard_axis) if resharded(cfg) and not collect_debug else None)
-    if not gated and (collect_debug or mesh is not None or cfg.shade_tile > 0):
-        raise ValueError("trace_paths(gated=False) runs one full-width slice "
-                         "(shade_tile 0), with no debug tap and no resharding")
 
     for depth in range(cfg.bounces):
-        # bounce gate: nothing alive, carry unchanged. Off under resharding:
-        # its predicate is the rank's own, and a rank that skipped the
-        # bounce would miss its collectives while the others wait in them.
-        # The post-hit gates in _gated hold no collective and stay.
-        if (gated and not collect_debug and mesh is None
-                and not host_read("bounce_gate", alive.any())):
-            continue
         pid = pixel_id
         if mesh is not None:
             lanes, alive, meta = ring_donate(
@@ -598,7 +578,7 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key, sample: int,
                 lanes[k] for k in ("o", "d", "radiance", "throughput", "primary_t",
                                    "pixel_id"))
         W = o.shape[0]
-        S = _snap_subtiles(W, cfg.shade_tile)
+        S = 1 if collect_debug else _snap_subtiles(W, cfg.shade_tile)
         n = W // S
         t_init = torch.where(alive, torch.full_like(primary_t, BVH_FAR),
                              torch.zeros_like(primary_t))
@@ -609,14 +589,12 @@ def trace_paths(scene, cfg: RenderConfig, o, d, pixel_id, key, sample: int,
                          alive=alive, primary_t=primary_t, hit_t=hit.t,
                          prim=hit.prim.clamp(min=0).long(), found0=hit.prim >= 0,
                          alive_in=alive, pixel_id=pid)
-            if collect_debug:
-                rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst)
+            if S == 1:
+                rec = dict(ray_o=o, ray_d=d, hit_inst=hit.inst) if collect_debug else None
                 out = _shade(scene, cfg, packs, lanes, key, sample, depth, debug=rec)
-                records.append(dict(rec, throughput_out=out["throughput"],
-                                    alive_out=out["alive"], next_dir=out["d"]))
-            elif S == 1:
-                out = _gated(scene, cfg, packs, lanes, key, sample, depth,
-                             alive_known=mesh is None, gated=gated)
+                if collect_debug:
+                    records.append(dict(rec, throughput_out=out["throughput"],
+                                        alive_out=out["alive"], next_dir=out["d"]))
             else:
                 parts = [_gated(scene, cfg, packs,
                                 {k: x[i * n:(i + 1) * n] for k, x in lanes.items()},
@@ -673,13 +651,12 @@ def render_aov(scene, cfg: RenderConfig, o, d):
 
 
 def render_sample(scene, cam, cfg: RenderConfig, key, sample: int,
-                  pixel_ids: torch.Tensor, gated: bool = True):
+                  pixel_ids: torch.Tensor):
     """One sample for a batch of pixels: primary ray at integer pixel
     coords (through the Panini projection when ``cfg.post_processed``),
     plus a jittered AA ray averaged 50/50 (both traced in one doubled
     batch, the second with pixel ids offset by n_pixels); an AOV mode
-    shades the primary ray's hit only. ``key`` and ``gated``: see
-    ``trace_paths``. Returns (color (B,3), primary_t (B,))."""
+    shades the primary ray's hit only. ``key``: see ``trace_paths``. Returns (color (B,3), primary_t (B,))."""
     check_supported(cfg, scene)
     xs = torch.remainder(pixel_ids, cfg.width).to(torch.float32)
     ys = torch.div(pixel_ids, cfg.width, rounding_mode="floor").to(torch.float32)
@@ -696,7 +673,7 @@ def render_sample(scene, cam, cfg: RenderConfig, key, sample: int,
         o = torch.cat([o1, o2])
         d = torch.cat([d1, d2])
         pid2 = torch.cat([pixel_ids, pixel_ids + cfg.n_pixels])
-        r, hit = trace_paths(scene, cfg, o, d, pid2, key, sample, gated=gated)
+        r, hit = trace_paths(scene, cfg, o, d, pid2, key, sample)
         return 0.5 * (r[:b] + r[b:]), hit.t[:b]
-    color, hit = trace_paths(scene, cfg, o1, d1, pixel_ids, key, sample, gated=gated)
+    color, hit = trace_paths(scene, cfg, o1, d1, pixel_ids, key, sample)
     return color, hit.t

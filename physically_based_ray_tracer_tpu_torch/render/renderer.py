@@ -13,7 +13,6 @@ recorded as a CUDA graph instead (``render/graph.py``).
 from __future__ import annotations
 
 import contextlib
-import functools
 
 import numpy as np
 import torch
@@ -34,19 +33,18 @@ from physically_based_ray_tracer_tpu_torch.utils.timer import (DeviceTimer, Fram
 
 
 def _render_spp(scene, cam, cfg: RenderConfig, key, sample: int,
-                pixel_ids: torch.Tensor, gated: bool = True):
+                pixel_ids: torch.Tensor):
     """render_sample averaged over cfg.samples_per_pixel in-frame samples
     (sample index ``sample * spp + s``); the primary t is sample 0's.
-    ``key`` and ``gated``: see ``integrator.trace_paths``."""
+    ``key``: see ``integrator.trace_paths``."""
     spp = max(1, cfg.samples_per_pixel)
     if spp == 1:
-        return render_sample(scene, cam, cfg, key, sample, pixel_ids, gated=gated)
+        return render_sample(scene, cam, cfg, key, sample, pixel_ids)
     acc = torch.zeros((pixel_ids.shape[0], 3), dtype=torch.float32,
                       device=pixel_ids.device)
     t0 = None
     for s in range(spp):
-        c, t = render_sample(scene, cam, cfg, key, sample * spp + s, pixel_ids,
-                             gated=gated)
+        c, t = render_sample(scene, cam, cfg, key, sample * spp + s, pixel_ids)
         acc = acc + c
         if s == 0:
             t0 = t
@@ -137,15 +135,18 @@ class Renderer:
     before the render), and the film keeps its per-pixel depth-keyed
     reset.
 
-    Where ``graph.graph_path`` allows (the card, the dense engines, the
-    shaded image), the first tick records one chunk of the frame as a CUDA
-    graph (``graph.ChunkGraph``) and every tick replays it for each chunk:
-    its images are the eager path's, bit for bit. A new scene or camera of
-    the same layout (``tick``'s moved instances, an edited light or camera)
-    is copied into the recording's inputs; another layout or another
-    ``config`` is recorded anew. The ``pbrt.tick`` span's attributes count
-    ``chunks``, ``replays`` (the chunks replayed), ``captures`` (1 where the
-    tick recorded) and ``refreshed`` (the tensors copied in)."""
+    A chunk runs the integrator's one full-width body, which reads nothing
+    on the host (``integrator`` module docstring). Where
+    ``graph.graph_path`` allows (the card, the dense engines, the shaded
+    image, no resharding, no shade tiles), the first tick records one chunk
+    of the frame as a CUDA graph (``graph.ChunkGraph``) and every tick
+    replays it for each chunk: its images are the eager path's, bit for
+    bit. A new scene or camera of the same layout (``tick``'s moved
+    instances, an edited light or camera) is copied into the recording's
+    inputs; another layout or another ``config`` is recorded anew. The
+    ``pbrt.tick`` span's attributes count ``chunks``, ``replays`` (the
+    chunks replayed), ``captures`` (1 where the tick recorded) and
+    ``refreshed`` (the tensors copied in)."""
 
     def __init__(self, scene, camera, config: RenderConfig,
                  device=DEFAULT_DEVICE, handle=None):
@@ -217,8 +218,7 @@ class Renderer:
             refreshed = g.refresh(self.scene, self.camera)
         else:
             self._graph = None          # the old recording's memory goes first
-            g = self._graph = ChunkGraph(functools.partial(_render_spp, gated=False),
-                                         self.scene, self.camera, cfg,
+            g = self._graph = ChunkGraph(_render_spp, self.scene, self.camera, cfg,
                                          *_chunks(self._pixel_ids, cfg.chunk_pixels), b,
                                          self.device)
             g.capture()

@@ -14,7 +14,8 @@ two checkouts in turns to compare frames), then once under
 levels the wave engine ran, the program's spans of the profiled frame
 (``utils/profiling.spans``: per span name its count, wall and self time,
 host reads and the time blocked in them, traversal lanes launched and
-live), and the top 30 operators by device time. The device's busy share
+live), the host reads by site (``profiling.READS``), and the top 30
+operators by device time. The device's busy share
 and the traversal kernels' times are the benchmark's
 (``python3 -m pbrt_bench.run ... --trace 1``). It also runs from an older
 checkout of the port (copy it there), which may lack the spans or the
@@ -103,7 +104,12 @@ def _profile(label, scene, cam, cfg, dev, card):
     print(f"frame 1280x720 {label}: unprofiled wall median {statistics.median(plain_ms):.2f} "
           f"ms over {[round(x, 2) for x in plain_ms]}; profiled wall {wall_ms:.2f} ms, "
           f"waves {waves}, levels {levels}")
+    from physically_based_ray_tracer_tpu_torch.utils import profiling
+    reads = dict(getattr(profiling, "READS", {}))
     print(span_table(_spans()))
+    # a full-width frame reads the film's fetch alone; shade tiles add their
+    # slices' alive_in / found0, ring resharding its live counts
+    print(f"host reads by site: {reads}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
 
 

@@ -1,11 +1,13 @@
 """The recorded frame chunk (``render/graph.py``) and the integrator body it
-records (``trace_paths(gated=False)``), on the CPU with the plain engines:
-the body without its host gates gives the gated path's radiance and primary
-depth bit for bit, the frame's seed table gives today's streams, a refreshed
-recording renders the new scene as the eager path does and leaves the old
-scene as it was, the rule that decides where a tick records, and the body's
-reads of the host. Where a GPU is present (``cuda``-marked), the recording
-itself: replayed ticks against eager ticks on the card, bit for bit.
+records, on the CPU with the plain engines: the bf16 engine's one retest,
+the frame's seed table gives today's streams, a refreshed recording renders
+the new scene as the eager path does and leaves the old scene as it was,
+the rule that decides where a tick records, and the body's reads of the
+host (none, also in the dead and all-miss chunks where the JAX package's
+gates skip work; the body against the JAX package:
+``tests/test_torch_render.py::test_one_body_matches_jax``). Where a GPU is
+present (``cuda``-marked), the recording itself: replayed ticks against
+eager ticks on the card, bit for bit.
 
 No JAX here: the file runs on the card as
 ``python -m pytest --noconftest tests/test_torch_graph.py -m cuda``."""
@@ -106,53 +108,11 @@ def _spy(monkeypatch, module, name):
         yield calls
 
 
-# (scene, camera, config changes, pixel ids, the gates the gated run must take)
-CASES = {
-    # top rows: sky (all lanes miss at bounce 0); the middle: spheres and floor
-    "bench_bf16": (_bench, {}, list(range(0, 144, 5)), ()),
-    "bench_f32": (_bench, {"leaf_precision": "f32"}, list(range(0, 144, 5)), ()),
-    "cornell_bf16": (_cornell, {"width": 8, "height": 8}, list(range(0, 64, 5)), ()),
-    "cornell_f32": (_cornell, {"width": 8, "height": 8, "leaf_precision": "f32"},
-                    list(range(0, 64, 5)), ()),
-    "dead_after_bounce1": (_floor, {"width": 8, "height": 8}, list(range(0, 64, 3)),
-                           ("_skip_shade", "bounce_gate")),
-    "all_miss": (_bench, {}, list(range(0, 16)), ("_skip_shade", "bounce_gate")),
-    "all_miss_sky": (lambda: (_with_sky(_bench()[0]), _bench()[1]), {"skybox": True},
-                     list(range(0, 16)), ("_skip_shade", "bounce_gate")),
-}
-
-
-@pytest.mark.parametrize("case", CASES)
-def test_ungated_equals_gated(case, monkeypatch):
-    """trace_paths without its host gates gives the gated path's radiance and
-    primary t bit for bit; in the dead and all-miss chunks the gated run
-    took the gates (the miss shortcut, a skipped bounce) that the ungated run
-    replaces by the whole shading block."""
-    make, changes, ids, taken = CASES[case]
-    scene, cam = make()
-    cfg = BASE_CFG.replace(**changes)
-    ids = torch.tensor(ids, dtype=torch.int32)
-    o, d = _rays(cam, cfg, ids)
-    with _spy(monkeypatch, integrator, "_skip_shade") as skips, \
-            _spy(monkeypatch, integrator, "_closest") as passes:
-        r_g, hit_g = integrator.trace_paths(scene, cfg, o, d, ids, KEY, 2)
-        gated = len(skips), len(passes)
-        r_u, hit_u = integrator.trace_paths(scene, cfg, o, d, ids, KEY, 2, gated=False)
-        assert len(skips) == gated[0] and len(passes) == gated[1] + cfg.bounces
-    assert _same(r_g, r_u) and _same(hit_g.t, hit_u.t)
-    if "_skip_shade" in taken:
-        assert gated[0] >= 1
-    if "bounce_gate" in taken:
-        assert gated[1] < cfg.bounces
-    assert bool((r_u != 0).any()) or case.startswith("all_miss")
-    if case == "all_miss_sky":
-        assert bool((r_u > 0).all())
-
-
 @pytest.mark.parametrize("need", [False, True], ids=["no_lane_needs_it", "some_lanes"])
-def test_ungated_retest(need, monkeypatch):
-    """The bf16 engine's retest without its gate always launches B1 and
-    gives the gated verdict: ``cert`` itself where no lane needs it."""
+def test_retest_runs_once(need, monkeypatch):
+    """The bf16 engine's retest launches B1 exactly once, with no host read:
+    where no lane needs it, it gives ``cert``; on the lanes that need it,
+    B1's own verdict, and ``cert`` elsewhere."""
     scene, cam = _cornell()
     cfg = BASE_CFG.replace(width=8, height=8)
     ids = torch.arange(64, dtype=torch.int32)
@@ -161,15 +121,18 @@ def test_ungated_retest(need, monkeypatch):
     cert = torch.rand(64, generator=gen) < 0.3
     unc = cert.clone() if not need else cert | (torch.rand(64, generator=gen) < 0.4)
     t_max = torch.full((64,), 5.0)
+    profiling.reset()
     with _spy(monkeypatch, trace, "intersect_any_dense") as retests:
-        occ_g = trace_bf16._resolve_uncertain(scene.dense, o, d, t_max, cert, unc, True)
-        gated = len(retests)
-        occ_u = trace_bf16._resolve_uncertain(scene.dense, o, d, t_max, cert, unc, True,
-                                              gated=False)
-    assert gated == int(need) and len(retests) == gated + 1
-    assert torch.equal(occ_g, occ_u)
+        occ = trace_bf16._resolve_uncertain(scene.dense, o, d, t_max, cert, unc, True)
+    assert len(retests) == 1 and profiling.READS == {}
+    want = unc & ~cert
+    assert bool(want.any()) == need
+    exact = trace.intersect_any_dense(scene.dense, o, d, t_max)
+    assert torch.equal(occ[want], exact[want]) and torch.equal(occ[~want], cert[~want])
     if not need:
-        assert torch.equal(occ_u, cert)
+        assert torch.equal(occ, cert)
+    else:
+        assert bool(exact[want].any()) and not bool(exact[want].all())
 
 
 def test_seed_table_gives_todays_streams(monkeypatch):
@@ -191,7 +154,7 @@ def test_seed_table_gives_todays_streams(monkeypatch):
         m.setattr(rng, "stream_seed", recorded)
         c_eager, t_eager = _render_spp(scene, cam, cfg, KEY, sample, ids)
     table = rng.SeedTable(2 * cfg.bounces * 3 * len(rng.Purpose), CPU)
-    _render_spp(scene, cam, cfg, table, 0, ids, gated=False)      # names the streams
+    _render_spp(scene, cam, cfg, table, 0, ids)      # names the streams
     base = sample * cfg.samples_per_pixel
     table.fill(KEY, base)
     assert {(base + s, b, p) for s, b, p in table.streams} == drawn
@@ -200,7 +163,7 @@ def test_seed_table_gives_todays_streams(monkeypatch):
         assert int(table.table[slot]) == rng.stream_seed(KEY, base + s, b, p)
         pid = torch.arange(0, 2 * cfg.n_pixels, 7)
         assert _same(rng.uniform1(table, pid, s, b, p), rng.uniform1(KEY, pid, base + s, b, p))
-    c, t = _render_spp(scene, cam, cfg, table, 0, ids, gated=False)
+    c, t = _render_spp(scene, cam, cfg, table, 0, ids)
     assert _same(c, c_eager) and _same(t, t_eager)
 
 
@@ -228,8 +191,8 @@ def _poses(k):
 
 def _graph(scene, cam, cfg, ids):
     b = ids.shape[0]
-    g = graph_mod.ChunkGraph(functools.partial(_render_spp, gated=False), scene, cam, cfg,
-                             *_chunks(ids, cfg.chunk_pixels), b, CPU)
+    g = graph_mod.ChunkGraph(_render_spp, scene, cam, cfg, *_chunks(ids, cfg.chunk_pixels),
+                             b, CPU)
     g.capture()
     return g
 
@@ -316,17 +279,6 @@ def test_engagement_rule(change):
     assert not graph_mod.graph_path(cfg, CPU)
 
 
-@pytest.mark.parametrize("debug", [True, False], ids=["debug_tap", "shade_tile"])
-def test_ungated_body_refuses_the_debug_tap_and_slices(debug):
-    scene, cam = _floor()
-    cfg = BASE_CFG.replace(width=8, height=8, shade_tile=0 if debug else 16)
-    ids = torch.arange(64, dtype=torch.int32)
-    o, d = _rays(cam, cfg, ids)
-    with pytest.raises(ValueError, match="gated=False"):
-        integrator.trace_paths(scene, cfg, o, d, ids, KEY, 0, collect_debug=debug,
-                               gated=False)
-
-
 class _HostReads(TorchDispatchMode):
     """Records the operations that read the device on the host or upload
     host data: none can be recorded into a CUDA graph."""
@@ -346,28 +298,34 @@ class _HostReads(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+# (scene, camera, config changes, the chunk's pixel ids)
 BODY_CASES = {
-    "bench_bf16": (_bench, {}),
-    "bench_f32": (_bench, {"leaf_precision": "f32"}),
+    "bench_bf16": (_bench, {}, (40, 64)),
+    "bench_f32": (_bench, {"leaf_precision": "f32"}, (40, 64)),
     # the area light, two in-frame samples
-    "cornell_spp2": (_cornell, {"width": 8, "height": 8, "samples_per_pixel": 2}),
+    "cornell_spp2": (_cornell, {"width": 8, "height": 8, "samples_per_pixel": 2}, (40, 64)),
     # the sky, the Panini projection, every point light's shadow ray
     "bench_sky_panini": (lambda: (_with_sky(_bench()[0]), _bench()[1]),
-                         {"skybox": True, "post_processed": True, "one_shadow_ray": False}),
+                         {"skybox": True, "post_processed": True, "one_shadow_ray": False},
+                         (40, 64)),
+    # every lane dead after bounce 1, and every lane a miss at bounce 0: the
+    # chunks where the JAX package's gates skip work
+    "dead_after_bounce1": (_floor, {"width": 8, "height": 8}, (40, 64)),
+    "all_miss": (_bench, {}, (0, 16)),
 }
 
 
 @pytest.mark.parametrize("case", BODY_CASES)
 def test_body_reads_nothing_on_the_host(case, monkeypatch):
-    """After one pass, the ungated body (one chunk) makes no host read and no
+    """After one pass, the body (one chunk) makes no host read and no
     upload outside the engines' plain versions, which the card replaces by
-    its kernels."""
-    make, changes = BODY_CASES[case]
+    its kernels, and runs every bounce's closest-hit pass."""
+    make, changes, (lo, hi) = BODY_CASES[case]
     scene, cam = make()
     cfg = BASE_CFG.replace(**changes)
-    ids = torch.arange(40, 64, dtype=torch.int32)
+    ids = torch.arange(lo, hi, dtype=torch.int32)
     table = rng.SeedTable(2 * cfg.bounces * 3 * len(rng.Purpose), CPU)
-    _render_spp(scene, cam, cfg, table, 0, ids, gated=False)
+    _render_spp(scene, cam, cfg, table, 0, ids)
     mode = _HostReads()
     for module, name in ((trace, "plain_traverse"), (trace_bf16, "plain_traverse_bf16")):
         real = getattr(module, name)
@@ -376,9 +334,11 @@ def test_body_reads_nothing_on_the_host(case, monkeypatch):
             with torch.utils._python_dispatch._disable_current_modes():
                 return _real(*args, **kwargs)
         monkeypatch.setattr(module, name, plain)
-    with mode:
-        _render_spp(scene, cam, cfg, table, 0, ids, gated=False)
-    assert mode.seen == [] and mode.ops > 1000
+    profiling.reset()
+    with mode, _spy(monkeypatch, integrator, "_closest") as passes:
+        _render_spp(scene, cam, cfg, table, 0, ids)
+    assert mode.seen == [] and mode.ops > 1000 and profiling.READS == {}
+    assert len(passes) == cfg.bounces * max(1, cfg.samples_per_pixel)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The render options of the command-line path, the port's render_sample
 against the JAX package's with the same key: sky radiance on missed lanes
-(in the shading block and in the all-miss shortcut), the Panini
+(in the full-width block and in a slice's all-miss shortcut), the Panini
 projection, the sub-tile shading gates, and the zero-contribution
 shadow-ray pruning with a negative light colour (the AOV views:
 tests/test_torch_aov.py).
@@ -62,8 +62,10 @@ class _Spy:
 @pytest.mark.parametrize("which", ["lone_sphere", "instanced"])
 def test_sky_matches_jax(which, monkeypatch):
     """Sky radiance on missed lanes. The lone sphere, seen from outside,
-    takes the all-miss shortcut from bounce 1 on (every bounce ray leaves a
-    convex surface), and its sky must still be added there."""
+    misses everything from bounce 1 on (every bounce ray leaves a convex
+    surface), where the JAX package takes its all-miss shortcut and the
+    port's full-width block runs as on every bounce; its sky must still be
+    added there."""
     spy = _Spy(monkeypatch)
     if which == "lone_sphere":
         jscene, jcam = lone_sphere_scene(sky=SKY)
@@ -75,7 +77,7 @@ def test_sky_matches_jax(which, monkeypatch):
     _agree(got, want)
     np.testing.assert_array_equal(got_t < 1e29, want_t < 1e29)
     if which == "lone_sphere":
-        assert spy.calls["_skip_shade"] == 1, spy.calls     # bounce 1: all missed
+        assert spy.calls == {"_shade": cfg.bounces, "_skip_shade": 0, "_dead_skip": 0}
     # the sky is really there: the same sample without it is darker
     dark, _ = integrator.render_sample(port_scene(jscene), port_camera(jcam),
                                        port_config(cfg.replace(skybox=False)), 0, 0,

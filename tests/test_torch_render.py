@@ -1,4 +1,8 @@
-"""The whole slice: the port's render_sample vs the JAX package's, same key.
+"""The whole slice: the port's render_sample vs the JAX package's, same key,
+and the port's one full-width integrator body (``trace_paths``, no host
+gate) vs the JAX package's gated ``trace_paths`` on chunks of every kind:
+lit, all dead after bounce 1 and all missed at bounce 0, on the dense, row
+and lane engines.
 
 Tolerance: at least 99% of pixels allclose at rtol=2e-4, atol=2e-5 and a
 mean absolute image difference below 1e-3. The two integrators run the same
@@ -10,6 +14,8 @@ the per-ray traversal, or a random number compared against a probability
 that differs in its last bit (lobe choice, light pick), which moves that
 pixel by a whole sample."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -17,11 +23,23 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from bench import build_bench_scene as jbuild_bench_scene  # noqa: E402
 from physically_based_ray_tracer_tpu.config import RenderConfig  # noqa: E402
+from physically_based_ray_tracer_tpu.render import integrator as jintegrator  # noqa: E402
 from physically_based_ray_tracer_tpu.render.integrator import render_sample as jrender  # noqa: E402
-from physically_based_ray_tracer_tpu_torch.ops import trace  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.camera import Camera as JCamera  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.lights import LightSet as JLightSet  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.presets import cornell_box as jcornell_box  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.procedural import make_quad  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.scene import Instance as JInstance  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.scene import MeshModel as JMeshModel  # noqa: E402
+from physically_based_ray_tracer_tpu.scene.scene import build_scene_instanced  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.ops import trace, trace_rows, traverse  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.render import integrator as tintegrator  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render import renderer as trenderer  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.render.integrator import render_sample as trender  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.scene.camera import primary_rays  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.utils import profiling  # noqa: E402
 from tests.scenes import sphere_scene  # noqa: E402
 from tests.torch_port import (SLICE_CFG, instanced_scene, port_camera,  # noqa: E402
                               port_config, port_scene)
@@ -105,3 +123,130 @@ def test_renderer_ticks_accumulate():
     assert r.sample == 2
     r.reset_accumulation()
     assert r.sample == 0 and float(r.film.spp.sum()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the one full-width body against the JAX package's gated trace_paths
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jbench(sky: bool = False):
+    """The benchmark scene (``bench.py``; the port's
+    ``presets.build_bench_scene``), with an 8x16 random sky image where
+    ``sky``."""
+    scene, cam, _ = jbuild_bench_scene()
+    if sky:
+        img = np.random.default_rng(5).random((8, 16, 3), dtype=np.float32)
+        scene = scene._replace(sky=jnp.asarray(img))
+    return scene, cam
+
+
+@functools.lru_cache(maxsize=None)
+def _jcornell():
+    return jcornell_box()
+
+
+@functools.lru_cache(maxsize=None)
+def _jfloor(legacy_bvh: bool = False):
+    """One floor quad under a camera looking straight down at it, lit by a
+    point light: every primary ray hits it, and every bounce ray leaves
+    upward into nothing (all lanes dead after bounce 1)."""
+    floor = JMeshModel.from_fat(make_quad([-4, 0, 4], [4, 0, 4], [4, 0, -4], [-4, 0, -4]),
+                                base_color=(0.7, 0.7, 0.7), roughness=0.6)
+    lights = JLightSet.make(point_pos=[[0.5, 3.0, 0.2]], point_color=[[9.0, 9.0, 9.0]])
+    scene, _, _ = build_scene_instanced([floor], [JInstance(0)], lights,
+                                        legacy_bvh=legacy_bvh, flatten=True)
+    return scene, JCamera.make(pos=(0.0, 3.0, 0.01), target=(0.0, 0.0, 0.0))
+
+
+BODY_CFG = RenderConfig(width=16, height=9, bounces=4, antialias=True, skybox=False,
+                        one_shadow_ray=True)
+EIGHT = {"width": 8, "height": 8}
+# (JAX scene and camera, config changes, pixel ids): the top rows of the
+# bench frame are sky, its middle rows spheres and floor
+BODY_CASES = {
+    "bench_bf16": (_jbench, {}, range(0, 144, 5)),
+    "bench_f32": (_jbench, {"leaf_precision": "f32"}, range(0, 144, 5)),
+    "cornell_bf16": (_jcornell, EIGHT, range(0, 64, 5)),
+    "cornell_f32": (_jcornell, dict(EIGHT, leaf_precision="f32"), range(0, 64, 5)),
+    "dead_after_bounce1": (_jfloor, EIGHT, range(0, 64, 3)),
+    "all_miss": (_jbench, {}, range(0, 16)),
+    "all_miss_sky": (lambda: _jbench(sky=True), {"skybox": True}, range(0, 16)),
+    # engines whose full-width chunk never ran without the gates before
+    "dead_after_bounce1_rows": (_jfloor, dict(EIGHT, traversal="pallas_rows"),
+                                range(0, 64, 3)),
+    "dead_after_bounce1_lane": (lambda: _jfloor(legacy_bvh=True),
+                                dict(EIGHT, traversal="lane"), range(0, 64, 3)),
+}
+# bounces where the JAX package's full-width gates skip the shading block
+# (no live lane hit anything) and the port runs it: a whole chunk dead
+# after bounce 1, or missed at bounce 0
+SKIPPED = {"dead_after_bounce1": 1, "all_miss": 0, "all_miss_sky": 0,
+           "dead_after_bounce1_rows": 1, "dead_after_bounce1_lane": 1}
+
+
+@pytest.mark.parametrize("case", BODY_CASES)
+def test_one_body_matches_jax(case, monkeypatch):
+    """The port's trace_paths runs every bounce's closest-hit pass and the
+    whole shading block, with no host read, also from the bounce on which
+    the JAX package's ``lax.cond`` gates skip them, and gives the JAX
+    package's radiance and primary t (``_agree``; the hit masks equal, t
+    within 1e-5 relative). A primary ray through a shared triangle edge may
+    hit in one package and miss in the other (the floor's diagonal under
+    the middle pixel: the JAX package's row and lane engines miss it, its
+    B1 and the port's engines hit it); such a pixel must lie on an edge of
+    the port's hit triangle, at most one per chunk, and is left out."""
+    make, changes, ids = BODY_CASES[case]
+    jscene, jcam = make()
+    cfg = BODY_CFG.replace(**changes)
+    tcfg = port_config(cfg)
+    scene = port_scene(jscene, bvh=cfg.traversal == "lane")
+    ids = torch.tensor(list(ids), dtype=torch.int32)
+    xs = torch.remainder(ids, cfg.width).to(torch.float32)
+    ys = torch.div(ids, cfg.width, rounding_mode="floor").to(torch.float32)
+    o, d = primary_rays(port_camera(jcam), xs, ys, cfg.width, cfg.height)
+    want_r, want_hit = jintegrator.trace_paths(jscene, cfg, jnp.asarray(o.numpy()),
+                                               jnp.asarray(d.numpy()), jnp.asarray(ids.numpy()),
+                                               jax.random.key(7), 2)
+    passes, shaded = [], []
+    real_closest, real_shade = tintegrator._closest, tintegrator._shade
+
+    def closest(*a, **kw):
+        passes.append(1)
+        return real_closest(*a, **kw)
+
+    def shade(scene, cfg, packs, lanes, *a, **kw):
+        shaded.append(bool((lanes["alive_in"] & lanes["found0"]).any()))
+        return real_shade(scene, cfg, packs, lanes, *a, **kw)
+    monkeypatch.setattr(tintegrator, "_closest", closest)
+    monkeypatch.setattr(tintegrator, "_shade", shade)
+    for m in (trace, trace_rows, traverse):
+        m.reset_counts()
+    profiling.reset()
+    got_r, got_hit = tintegrator.trace_paths(scene, tcfg, o, d, ids, 7, 2)
+    assert len(passes) == len(shaded) == cfg.bounces and profiling.READS == {}
+    if case in SKIPPED:
+        first = SKIPPED[case]
+        assert shaded == [True] * first + [False] * (cfg.bounces - first), shaded
+    else:
+        assert shaded[:2] == [True, True], shaded
+    if cfg.traversal == "pallas_rows":
+        assert trace_rows.PLAIN_CALLS["closest"] == cfg.bounces
+    if cfg.traversal == "lane":
+        assert sum(m.PLAIN_CALLS[k] for m in (trace, trace_rows) for k in m.PLAIN_CALLS) == 0
+    got_r, got_t = got_r.numpy(), got_hit.t.numpy()
+    want_r, want_t = np.asarray(want_r), np.asarray(want_hit.t)
+    hit = want_t < 1e29
+    fork = (got_t < 1e29) != hit
+    if fork.any():
+        exact = real_closest(scene, tcfg, o[fork], d[fork])
+        w = torch.minimum(torch.minimum(exact.u, exact.v), 1.0 - exact.u - exact.v)
+        assert fork.sum() == 1 and bool((exact.prim >= 0).all()) and float(w.abs().max()) < 1e-6
+    _agree(got_r[~fork], want_r[~fork])
+    keep = hit & ~fork
+    np.testing.assert_allclose(got_t[keep], want_t[keep], rtol=1e-5)
+    if case.startswith("all_miss"):
+        assert not hit.any()
+        assert bool((got_r > 0).all()) if case == "all_miss_sky" else not got_r.any()
+    else:
+        assert want_r.mean() > 1e-3

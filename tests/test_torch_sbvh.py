@@ -12,7 +12,14 @@ t within 1e-6 relative, prim outside t-ties); B2's plain version equal to
 the JAX kernel in interpret mode (closest on every lane, occlusion outside
 near-tmax lanes), and within the JAX package's precision contract of brute
 force where the JAX engine meets it. Skips where ``g++`` is absent (the
-port raises there; the JAX package falls back)."""
+port raises there; the JAX package falls back); elsewhere the JAX package's
+native builders are loaded first (``tests/torch_port.py::ensure_jax_native``,
+whose recovery from a half-written library is tested here too)."""
+
+import ctypes
+import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +30,7 @@ import torch  # noqa: E402
 
 from physically_based_ray_tracer_tpu.bvh import builder as jbuilder  # noqa: E402
 from physically_based_ray_tracer_tpu.bvh import dense as jdense  # noqa: E402
+from physically_based_ray_tracer_tpu.bvh import native as jnative  # noqa: E402
 from physically_based_ray_tracer_tpu.bvh.types import sah_cost as jsah_cost  # noqa: E402
 from physically_based_ray_tracer_tpu.ops import pallas_bf16 as jb  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.bvh import builder as tbuilder  # noqa: E402
@@ -33,16 +41,14 @@ from physically_based_ray_tracer_tpu_torch.ops.intersect import brute_force_inte
 from tests.test_sbvh import _mixed_tris, _rays  # noqa: E402
 from tests.test_torch_tables import _same_bytes, _same_dense  # noqa: E402
 from tests.test_torch_trace import _ties  # noqa: E402
-from tests.test_torch_wave import _needs_gxx  # noqa: E402
-from tests.torch_port import instanced_parts  # noqa: E402
+from tests.test_torch_wave import _needs_gxx, jax_native  # noqa: E402, F401
+from tests.torch_port import ensure_jax_native, instanced_parts  # noqa: E402
 
 T_RTOL = 1e-6
 BVH_FIELDS = ("nodes_box", "nodes_child", "tris", "prim_index", "tris_woop")
 
 
-@pytest.fixture(autouse=True)
-def _gxx():
-    _needs_gxx()
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def T(x):
@@ -52,6 +58,48 @@ def T(x):
 def _oracle(tri, o, d):
     v0 = tri[:, 0]
     return brute_force_intersect(T(o), T(d), T(v0), T(tri[:, 1] - v0), T(tri[:, 2] - v0))
+
+
+def _whole_library(path, tmp_path, tries=20):
+    """The bytes of the library at ``path``, once a copy of them loads."""
+    probe = tmp_path / "probe.so"
+    for _ in range(tries):
+        data = open(path, "rb").read()
+        probe.write_bytes(data)
+        try:
+            ctypes.CDLL(str(probe))
+            return data
+        except OSError:
+            time.sleep(0.5)
+    raise AssertionError(f"{path} never loaded")
+
+
+def test_ensure_jax_native_recovers_from_a_half_written_library(tmp_path, monkeypatch):
+    """A library cut inside its ELF header (what a load sees early in the
+    write) at a scratch copy of the SBVH loader's path, newer than its
+    source, fails the JAX loader (``file too short``), which caches the
+    failure; once the whole library is written there, ensure_jax_native
+    clears the cached failure and loads it."""
+    data = _whole_library(jnative._SBVH_SO_PATH, tmp_path)
+    so = tmp_path / "libsbvh_builder.so"
+    so.write_bytes(data[:32])
+    monkeypatch.setattr(jnative, "_SBVH_SO_PATH", str(so))
+    monkeypatch.setattr(jnative, "_sbvh_lib", None)
+    monkeypatch.setattr(jnative, "_sbvh_tried", False)
+    assert jnative.get_sbvh_lib() is None and jnative._sbvh_tried
+
+    def write():
+        time.sleep(1.0)
+        part = tmp_path / "part.so"
+        part.write_bytes(data)
+        os.replace(part, so)
+    writer = threading.Thread(target=write)
+    writer.start()
+    try:
+        ensure_jax_native()
+    finally:
+        writer.join()
+    assert jnative._sbvh_lib is not None and jnative.get_sbvh_lib() is jnative._sbvh_lib
 
 
 # ---------------------------------------------------------------------------

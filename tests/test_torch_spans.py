@@ -84,31 +84,32 @@ def test_tick_records_one_tree(demo, precision):
     assert 0 < names.count("pbrt.occlusion") <= names.count("pbrt.shade")
     occl = [r for r in recs if r["name"] == "pbrt.occlusion"]
     assert all(r["lanes"] > 0 for r in occl)
-    if precision == "bf16":
-        # one retest gate per occlusion pass of the bf16 engine
-        assert profiling.READS["retest"] == len(occl)
+    # the full-width chunk reads nothing on the host: no bounce gate, no
+    # retest gate; the film's fetch alone
+    assert profiling.READS == {"film_fetch": 1}
     # the frame path makes no profiler event of its own
     assert not [e.name for e in prof.events() if e.name.startswith("pbrt.")]
 
 
 def test_reads_match_the_profilers_scalar_reads(demo):
     """Every host read on the exact engine's frame path is one of the
-    program's reads: the profiler's scalar reads plus the film's fetch."""
+    program's reads: the profiler's scalar reads (none: the full-width
+    chunk has no gate) plus the film's fetch."""
     recs, prof = _traced_tick(*demo, CFG.replace(leaf_precision="f32"))
     scalar = sum(e.name == "aten::_local_scalar_dense" for e in prof.events())
     reads = sum(r["reads"] for r in recs)
-    assert reads == scalar + 1
+    assert reads == scalar + 1 and scalar == 0
     assert reads == sum(profiling.READS.values())
     film = next(r for r in recs if r["name"] == "pbrt.film")
     assert film["reads"] == 1 and film["wait_ns"] >= 0
-    assert profiling.READS["film_fetch"] == 1
-    assert profiling.READS["bounce_gate"] >= 2       # every chunk's first bounce
+    assert profiling.READS == {"film_fetch": 1}
 
 
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 def test_live_lanes_of_the_closest_launches(demo, precision):
     """The closest launches' live lanes are the lanes alive at each bounce
-    (the debug records' ``alive_out``), with or without the gates."""
+    (the debug records' ``alive_out``), with or without the debug tap; a
+    closest launch at every bounce."""
     scene, cam = demo
     cfg = CFG.replace(leaf_precision=precision)
     ids = torch.arange(96, dtype=torch.int32)
@@ -122,10 +123,10 @@ def test_live_lanes_of_the_closest_launches(demo, precision):
                 out = integrator.trace_paths(scene, cfg, o, d, ids, 3, 0, collect_debug=debug)
         closest = [r for r in profiling.spans() if r["name"] == "pbrt.closest"]
         counted[debug] = sum(r["live"] for r in closest)
+        assert [r["lanes"] for r in closest] == [96] * cfg.bounces
         if debug:
             alive = out[2]["alive_out"]
             want = 96 + int(alive[:-1].sum())
-            assert [r["lanes"] for r in closest] == [96] * cfg.bounces
     assert counted[True] == counted[False] == want
     assert 96 < want < 96 * cfg.bounces
 

@@ -40,8 +40,8 @@ from physically_based_ray_tracer_tpu_torch.render.renderer import Renderer  # no
 from physically_based_ray_tracer_tpu_torch.scene.presets import build_bench_scene  # noqa: E402
 from tests.test_torch_render import _agree  # noqa: E402
 from tests.test_torch_trace import _rays, _ties  # noqa: E402
-from tests.torch_port import (SLICE_CFG, instanced_parts, instanced_scene,  # noqa: E402
-                              port_camera, port_config, port_scene)
+from tests.torch_port import (SLICE_CFG, ensure_jax_native, instanced_parts,  # noqa: E402
+                              instanced_scene, port_camera, port_config, port_scene)
 
 T_RTOL = 1e-6
 N_RAYS = 4096
@@ -52,6 +52,14 @@ WAVE_CFG = SLICE_CFG.replace(traversal="wave")
 def _needs_gxx():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ (the JAX package itself then falls back to numpy)")
+
+
+@pytest.fixture
+def jax_native():
+    """g++ present and the JAX package's native builders loaded (the JAX
+    package's own native build is what these tests compare with)."""
+    _needs_gxx()
+    ensure_jax_native()
 
 
 def _same_bytes(got, want, what):
@@ -104,11 +112,10 @@ def bench_tris():
     return jscene_mod._bake_world(models, instances)["tri"]
 
 
-def test_bench_scene_classic_bvh_identical():
+def test_bench_scene_classic_bvh_identical(jax_native):
     """build_bench_scene(legacy_bvh=True): the classic BVH (native builder,
     16 triangles a leaf) and the depth equal the JAX package's scene build
     byte for byte; the dense tables stay those of the default build."""
-    _needs_gxx()
     models, instances = _bench_parts()
     j, _, jdepth = jscene_mod.build_scene_instanced(models, instances, legacy_bvh=True,
                                                     flatten="auto")
@@ -125,11 +132,11 @@ def test_bench_scene_classic_bvh_identical():
 
 @pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("which", ["bench", "soup"])
-def test_build_bvh_identical(which, native, bench_tris):
+def test_build_bvh_identical(which, native, bench_tris, request):
     """build_bvh: the native path vs the JAX default, the numpy path vs the
     JAX numpy path; woop_from_tris, bvh_depth and sah_cost alike."""
     if native:
-        _needs_gxx()
+        request.getfixturevalue("jax_native")
     tri = bench_tris if which == "bench" else _soup()
     t = tbuilder.build_bvh(tri, leaf_size=16, use_native=native)
     j = (jbuilder.build_bvh(tri, leaf_size=16) if native

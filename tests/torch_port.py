@@ -1,13 +1,18 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
 carry a scene, its instanced handle or a configuration of the JAX package
-over to the port, and a small two-level instanced scene built identically
-by both packages."""
+over to the port, a small two-level instanced scene built identically by
+both packages, and the JAX package's native BVH builders loaded before a
+test compares the port's builders with them."""
 
 import dataclasses
 import enum
+import fcntl
 import os
+import shutil
+import time
 
 import numpy as np
+import pytest
 import torch
 
 from physically_based_ray_tracer_tpu.config import RenderConfig
@@ -32,6 +37,10 @@ from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance,
 # run many small-tensor operations that gain nothing from more threads.
 torch.set_num_threads(1)
 
+# serialises the port's test processes around the JAX package's native loader
+NATIVE_LOCK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "build", "jax_native.lock")
+
 # the repository's 32x16 HDR sky fixture (tests/test_golden_configs.py)
 SKY_FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "sky_32x16.hdr")
 
@@ -39,6 +48,43 @@ SKY_FIXTURE = os.path.join(os.path.dirname(__file__), "golden", "sky_32x16.hdr")
 SLICE_CFG = RenderConfig(width=16, height=16, bounces=2, antialias=True,
                          skybox=False, accumulate=False, traversal="pallas",
                          leaf_precision="f32", one_shadow_ray=True)
+
+
+def ensure_jax_native(tries: int = 20, pause: float = 0.5) -> None:
+    """Make sure the JAX package's native builders load
+    (``bvh.native.get_lib()`` and ``get_sbvh_lib()`` return a library).
+
+    That loader compiles with ``g++ ... -o`` straight onto the library's
+    path, not atomically: a process that loads the file while another
+    writes it fails (``file too short``, ``invalid ELF header``), and the
+    loader keeps the failure for the whole process (``_tried`` /
+    ``_sbvh_tried``), after which the JAX package builds other tables or
+    none. Where ``g++`` exists, a cached failure is cleared and the load
+    tried again, up to ``tries`` times ``pause`` seconds apart, under a
+    file lock (``NATIVE_LOCK``) that keeps the port's test processes from
+    racing each other. A library that never loads fails the test."""
+    from physically_based_ray_tracer_tpu.bvh import native
+
+    os.makedirs(os.path.dirname(NATIVE_LOCK), exist_ok=True)
+    with open(NATIVE_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            for get, flag, path in ((native.get_lib, "_tried", "_SO_PATH"),
+                                    (native.get_sbvh_lib, "_sbvh_tried", "_SBVH_SO_PATH")):
+                for attempt in range(tries):
+                    if get() is not None:
+                        break
+                    if attempt == tries - 1 or shutil.which("g++") is None:
+                        pytest.fail(
+                            f"the JAX package's native builder {getattr(native, path)} "
+                            f"did not load in {attempt + 1} tries: its loader "
+                            "(physically_based_ray_tracer_tpu/bvh/native.py) writes it "
+                            "with a non-atomic `g++ -o`, and a load during the write "
+                            "fails and is cached")
+                    time.sleep(pause)
+                    setattr(native, flag, False)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 def port_config(jcfg):
