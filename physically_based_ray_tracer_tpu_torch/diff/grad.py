@@ -117,7 +117,9 @@ def _rebake(s, g: dict) -> dict:
     lin = torch.einsum("iab,ibc->iac", m[:, :, 0:3], base_inv[:, 0:3, 0:3])
     tcol = (torch.einsum("iab,ib->ia", m[:, :, 0:3], base_inv[:, 0:3, 3])
             + m[:, :, 3])
-    inv_t = torch.linalg.inv(lin).transpose(1, 2)                     # normal matrix
+    # normal matrix; inv_ex: inv's kernel and gradient without its error
+    # check, which reads the host (jnp.linalg.inv checks nothing either)
+    inv_t = torch.linalg.inv_ex(lin).inverse.transpose(1, 2)
     inst = s.prim_inst.long()
     lp, tp, np_ = take_rows(lin, inst), take_rows(tcol, inst), take_rows(inv_t, inst)
     lc = take_rows(inv_t, torch.repeat_interleave(inst, 3))
@@ -243,8 +245,14 @@ def trainable(params: dict) -> list:
 
 def adam(params: dict, lr: float) -> torch.optim.Adam:
     """torch.optim.Adam over ``trainable(params)`` with optax.adam's
-    defaults: the two take the same steps."""
-    return torch.optim.Adam(trainable(params), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS)
+    defaults: the two take the same steps. On CUDA leaves it is
+    ``capturable``: its step count lives on the card and its bias
+    correction is computed there, so a step reads nothing on the host and
+    can be recorded (``diff/inverse.py``); torch refuses that on the CPU,
+    which keeps the host's scalars."""
+    leaves = trainable(params)
+    return torch.optim.Adam(leaves, lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+                            capturable=any(v.is_cuda for v in leaves))
 
 
 def map_params(params: dict, fn) -> dict:

@@ -25,7 +25,8 @@ recording is made with the program's spans and counters paused
 (``profiling.paused``), after one pass of the body run as it is on a side
 stream (the warm-up torch's capture needs, which also names the frame's
 random streams). ``LAUNCHES`` of the dense engines count a replay's kernels
-as launches, and the recording's own none.
+as launches, and the recording's own none (``RecordedLaunches``; the train
+step's recording, ``diff/inverse.py``, counts so too).
 """
 
 from __future__ import annotations
@@ -35,12 +36,44 @@ import dataclasses
 import torch
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode
-from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16
+from physically_based_ray_tracer_tpu_torch.ops import take_rows, trace, trace_bf16
 from physically_based_ray_tracer_tpu_torch.render.integrator import resharded
 from physically_based_ray_tracer_tpu_torch.utils import profiling, rng
 
-# the dense engines' launch counters (trace.py: B1, trace_bf16.py: B2)
-_COUNTERS = (trace.LAUNCHES, trace_bf16.LAUNCHES)
+# the launch counters a recording's kernels bump: the dense engines' per
+# mode (trace.py: B1, trace_bf16.py: B2) and the row gather's backward
+# (take_rows.py: its launches and the rows they reduced, module globals)
+_COUNTERS = ((trace.LAUNCHES, ("closest", "any")), (trace_bf16.LAUNCHES, ("closest", "any")),
+             (vars(take_rows), ("LAUNCHES", "ROWS")))
+
+
+def _read_counters() -> list[int]:
+    return [held[k] for held, keys in _COUNTERS for k in keys]
+
+
+def _write_counters(values: list[int]) -> None:
+    it = iter(values)
+    for held, keys in _COUNTERS:
+        for k in keys:
+            held[k] = next(it)
+
+
+class RecordedLaunches:
+    """The launches counted while a recording is made, where none of its
+    kernels runs: made before the recording, ``take_back()`` after it
+    restores the counters, and ``credit()`` adds the recording's counts
+    again at each replay."""
+
+    def __init__(self):
+        self.before = _read_counters()
+        self.added = [0] * len(self.before)
+
+    def take_back(self) -> None:
+        self.added = [n - b for n, b in zip(_read_counters(), self.before)]
+        _write_counters(self.before)
+
+    def credit(self) -> None:
+        _write_counters([n + a for n, a in zip(_read_counters(), self.added)])
 
 
 def graph_path(cfg: RenderConfig, device) -> bool:
@@ -127,7 +160,7 @@ class ChunkGraph:
                                    self.device)
         self.graph = None
         self.out = None
-        self.launches: list[dict] = []
+        self.launches = RecordedLaunches()
         self.stack_cap = None
 
     def _body(self):
@@ -147,13 +180,11 @@ class ChunkGraph:
             with torch.cuda.stream(side):
                 self._body()
             main.wait_stream(side)
-            before = [dict(c) for c in _COUNTERS]
+            self.launches = RecordedLaunches()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 self.out = self._body()
-            self.launches = [{k: c[k] - b[k] for k in c} for c, b in zip(_COUNTERS, before)]
-            for c, b in zip(_COUNTERS, before):
-                c.update(b)
+            self.launches.take_back()
             self.graph = graph
             self.stack_cap = _stack_cap()
 
@@ -205,9 +236,7 @@ class ChunkGraph:
                 out = self._body()
             else:
                 self.graph.replay()
-                for counter, added in zip(_COUNTERS, self.launches):
-                    for k, v in added.items():
-                        counter[k] += v
+                self.launches.credit()
                 out = self.out
             if color is None:
                 color = out[0].new_empty((self.padded.shape[0],) + out[0].shape[1:])

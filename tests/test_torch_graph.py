@@ -7,7 +7,8 @@ host (none, also in the dead and all-miss chunks where the JAX package's
 gates skip work; the body against the JAX package:
 ``tests/test_torch_render.py::test_one_body_matches_jax``). Where a GPU is
 present (``cuda``-marked), the recording itself: replayed ticks against
-eager ticks on the card, bit for bit.
+eager ticks on the card, bit for bit, and the recorded train step
+(``diff/inverse.py``'s ``StepGraph``) against eager steps, bit for bit.
 
 No JAX here: the file runs on the card as
 ``python -m pytest --noconftest tests/test_torch_graph.py -m cuda``."""
@@ -21,10 +22,12 @@ import functools
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from physically_based_ray_tracer_tpu_torch.config import RenderConfig, RenderMode
-from physically_based_ray_tracer_tpu_torch.ops import trace, trace_bf16
+from physically_based_ray_tracer_tpu_torch.diff import inverse as inverse_mod
+from physically_based_ray_tracer_tpu_torch.diff.grad import adam, clone_params, trainable
+from physically_based_ray_tracer_tpu_torch.ops import take_rows, trace, trace_bf16
+from physically_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh
 from physically_based_ray_tracer_tpu_torch.render import graph as graph_mod
 from physically_based_ray_tracer_tpu_torch.render import integrator
 from physically_based_ray_tracer_tpu_torch.render import renderer as renderer_mod
@@ -38,6 +41,7 @@ from physically_based_ray_tracer_tpu_torch.scene.scene import (Instance, MeshMod
                                                                build_scene_instanced,
                                                                rebuild_scene)
 from physically_based_ray_tracer_tpu_torch.utils import profiling, rng
+from torch_step import HostReads, bench_step_problem, unwatch_plain_engines
 
 # one intra-op thread a test process, as tests/torch_port.py sets it: the
 # suite runs several processes side by side
@@ -279,25 +283,6 @@ def test_engagement_rule(change):
     assert not graph_mod.graph_path(cfg, CPU)
 
 
-class _HostReads(TorchDispatchMode):
-    """Records the operations that read the device on the host or upload
-    host data: none can be recorded into a CUDA graph."""
-
-    FLAGGED = {"_local_scalar_dense", "lift_fresh", "nonzero", "masked_select",
-               "is_nonzero", "equal"}
-
-    def __init__(self):
-        super().__init__()
-        self.seen = []
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops += 1
-        if func.__name__.split(".")[0] in self.FLAGGED:
-            self.seen.append(func.__name__)
-        return func(*args, **(kwargs or {}))
-
-
 # (scene, camera, config changes, the chunk's pixel ids)
 BODY_CASES = {
     "bench_bf16": (_bench, {}, (40, 64)),
@@ -326,14 +311,8 @@ def test_body_reads_nothing_on_the_host(case, monkeypatch):
     ids = torch.arange(lo, hi, dtype=torch.int32)
     table = rng.SeedTable(2 * cfg.bounces * 3 * len(rng.Purpose), CPU)
     _render_spp(scene, cam, cfg, table, 0, ids)
-    mode = _HostReads()
-    for module, name in ((trace, "plain_traverse"), (trace_bf16, "plain_traverse_bf16")):
-        real = getattr(module, name)
-
-        def plain(*args, _real=real, **kwargs):
-            with torch.utils._python_dispatch._disable_current_modes():
-                return _real(*args, **kwargs)
-        monkeypatch.setattr(module, name, plain)
+    mode = HostReads()
+    unwatch_plain_engines(monkeypatch)
     profiling.reset()
     with mode, _spy(monkeypatch, integrator, "_closest") as passes:
         _render_spp(scene, cam, cfg, table, 0, ids)
@@ -411,3 +390,98 @@ def test_replay_equals_eager_on_card(card, moving, monkeypatch):
         warm = cfg.bounces if k == 1 else 0
         assert trace_bf16.LAUNCHES["closest"] - launches["closest"] == (
             n_chunks * cfg.bounces + warm)
+
+
+# the recorded train step on the card: the inverse cell's problem at a
+# quarter of its width and height, a quarter of its batch, its learning rate
+STEP_SIZE = (320, 180)
+STEP_BATCH = 16384
+STEP_LR = 0.02
+
+
+def _step_attrs(step, *args, traced):
+    """One train step, under the profiler (spans on, the card traced too)
+    where ``traced``; the step span's attributes (None untraced) and the
+    loss."""
+    if not traced:
+        return None, step(*args)
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        loss = step(*args)
+    return [s for s in profiling.spans() if s["name"] == "pbrt.step"][-1]["attrs"], loss
+
+
+def _span_names() -> set:
+    return {s["name"] for s in profiling.spans()}
+
+
+def _train(card, problem, n, monkeypatch, eager):
+    """``n`` steps of the problem from its start, a batch drawn per step;
+    the last one traced. Per step: the loss, each leaf, its gradient and
+    Adam's moments after it, the row gather's launches and the step span's
+    attributes. Then the step function, parameters and batch."""
+    scene, cam, cfg, target, start = problem
+    params = clone_params(start)
+    opt = adam(params, STEP_LR)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(KEY)
+    out = []
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(inverse_mod, "graph_path", lambda cfg, device: False)
+        step = inverse_mod.make_train_step(scene, cam, cfg, opt)
+        for k in range(n):
+            ids = torch.randperm(cfg.n_pixels, generator=gen,
+                                 device=card)[:STEP_BATCH].to(torch.int32)
+            launches = take_rows.LAUNCHES
+            attrs, loss = _step_attrs(step, params, KEY, k, ids, target[ids.long()],
+                                      traced=k == n - 1)
+            leaves = trainable(params)
+            out.append(dict(
+                loss=loss, leaves=[v.detach().clone() for v in leaves],
+                grads=[v.grad.clone() for v in leaves],
+                moments=[opt.state[v][m].clone() for v in leaves
+                         for m in ("exp_avg", "exp_avg_sq")],
+                launches=take_rows.LAUNCHES - launches, attrs=attrs))
+    return out, step, params, ids
+
+
+@pytest.mark.cuda
+def test_recorded_step_equals_eager_on_card(card, monkeypatch):
+    """Over 4 steps of the bench problem, the warm-up step, the step that
+    records and replays, and two replays give the eager steps' losses,
+    leaves, gradients and Adam moments bit for bit, with 9 row-gather
+    launches a step either way; the traced replay's step span counts one
+    replay. A step with another batch size, another parameter dict or a
+    mesh runs eagerly, and the recording replays again after it."""
+    problem = bench_step_problem(card, *STEP_SIZE)
+    eager, _, _, _ = _train(card, problem, 4, monkeypatch, eager=True)
+    replayed, step, params, ids = _train(card, problem, 4, monkeypatch, eager=False)
+    for k, (e, r) in enumerate(zip(eager, replayed)):
+        assert _same(e["loss"], r["loss"]), k
+        for key in ("leaves", "grads", "moments"):
+            assert all(_same(a, b) for a, b in zip(e[key], r[key])), (k, key)
+        assert e["launches"] == r["launches"] == 9, k
+    assert eager[-1]["attrs"] == {"replays": 0, "captures": 0}
+    assert replayed[-1]["attrs"] == {"replays": 1, "captures": 0}
+    assert not _span_names() & {"pbrt.forward", "pbrt.backward"}
+
+    scene, cam, cfg, target, start = problem
+    short = ids[:STEP_BATCH // 2]
+    for args in ((params, KEY, 4, short, target[short.long()]),
+                 (clone_params(start), KEY, 4, ids, target[ids.long()])):
+        attrs, _ = _step_attrs(step, *args, traced=True)
+        assert attrs == {"replays": 0, "captures": 0} and "pbrt.forward" in _span_names()
+    attrs, _ = _step_attrs(step, params, KEY, 5, ids, target[ids.long()], traced=True)
+    assert attrs == {"replays": 1, "captures": 0}
+    assert all(v.grad is not None for v in trainable(params))
+    mesh = make_mesh(1, device=card)
+    try:
+        p = clone_params(start)
+        sharded = inverse_mod.make_sharded_train_step(mesh, scene, cam, cfg, adam(p, STEP_LR))
+        for k in range(2):
+            attrs, _ = _step_attrs(sharded, p, KEY, k, ids, target[ids.long()], traced=True)
+            assert attrs == {"replays": 0, "captures": 0}, k
+    finally:
+        mesh.close()

@@ -13,7 +13,11 @@ step): torch computes the bias correction in float64 Python scalars and
 divides by its root, optax computes it in float32 inside the root, and
 near the optimum, where m / sqrt(v) is sensitive, that moves a step by a
 few 1e-6. A checkpoint resume on the CPU repeats the uninterrupted run's
-losses bit for bit."""
+losses bit for bit. The step the card records (``diff/inverse.py``'s
+``StepGraph``) reads nothing on the host after one step: its forward,
+backward and capturable Adam update, run here with the recording's seed
+table; its replays against eager steps: tests/test_torch_graph.py on the
+card."""
 
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
+import importlib  # noqa: E402
+
 import torch  # noqa: E402
 
 from physically_based_ray_tracer_tpu.config import RenderConfig as JRenderConfig  # noqa: E402
@@ -34,9 +40,14 @@ from physically_based_ray_tracer_tpu_torch import inverse_material  # noqa: E402
 from physically_based_ray_tracer_tpu_torch.diff.checkpoint import (  # noqa: E402
     load_checkpoint, save_checkpoint)
 from physically_based_ray_tracer_tpu_torch.diff.grad import (  # noqa: E402
-    adam, adam_state_from_optax, clone_params, param_items, params_from_numpy)
+    ADAM_BETAS, ADAM_EPS, adam, adam_state_from_optax, clone_params, param_items,
+    params_from_numpy, trainable)
 from physically_based_ray_tracer_tpu_torch.diff.inverse import fit, make_train_step  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.ops import take_rows  # noqa: E402
+from physically_based_ray_tracer_tpu_torch.utils import profiling, rng  # noqa: E402
 from tests.torch_port import port_camera, port_config, port_scene  # noqa: E402
+from tests.torch_step import (HostReads, bench_step_problem,  # noqa: E402
+                              unwatch_plain_engines)
 
 FIT_RTOL = 1e-3
 RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-6
@@ -194,3 +205,37 @@ def test_inverse_material_entry(capsys):
     out = capsys.readouterr().out
     assert "step 0: loss" in out and "loss: " in out
     assert "recovered albedo (model 0):" in out and "recovered roughness:" in out
+
+
+def test_recorded_step_reads_nothing_on_the_host(monkeypatch):
+    """After one step of the bench problem (every group the inverse cell
+    fits, instance_trs included), a second step run as the card records it
+    (the step's seeds from a ``rng.SeedTable``, Adam ``capturable``, here
+    let onto the CPU) makes no host read and no upload: its forward, its
+    backward (the row gathers' included) and the Adam update of every
+    leaf, outside the engines' plain versions, which the card replaces by
+its kernels. ``adam`` is capturable on CUDA leaves only."""
+    cpu = torch.device("cpu")
+    scene, cam, cfg, target, start = bench_step_problem(cpu, 16, 9)
+    assert not adam(start, LR).defaults["capturable"]
+    monkeypatch.setattr(importlib.import_module("torch.optim.adam"),
+                        "_get_capturable_supported_devices", lambda: ["cpu"])
+    params = clone_params(start)
+    opt = torch.optim.Adam(trainable(params), lr=LR, betas=ADAM_BETAS, eps=ADAM_EPS,
+                           capturable=True)
+    step = make_train_step(scene, cam, cfg, opt)
+    ids = torch.arange(0, cfg.n_pixels, 2, dtype=torch.int32)
+    step(params, 7, 0, ids, target[ids.long()])
+    seeds = rng.SeedTable(cfg.bounces * 3 * len(rng.Purpose), cpu)
+    before = [v.detach().clone() for v in trainable(params)]
+    calls = take_rows.backward_calls()[0]
+    unwatch_plain_engines(monkeypatch)
+    profiling.reset()
+    mode = HostReads()
+    with mode:
+        step(params, seeds, 0, ids, target[ids.long()])
+    assert mode.seen == [] and profiling.READS == {}
+    assert take_rows.backward_calls()[0] - calls == 9          # the backward's gathers
+    assert {"linalg_inv_ex", "addcdiv_"} <= mode.names         # the re-bake, Adam
+    assert all(v.grad is not None and not torch.equal(v.detach(), b)
+               for v, b in zip(trainable(params), before))
