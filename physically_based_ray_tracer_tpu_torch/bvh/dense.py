@@ -53,6 +53,12 @@ motion and returns a new ``DenseBVH`` that shares every BLAS-side tensor
 (``groups``, the bf16 tables and both derived tables) with the old one; the
 old table's tensors are never written.
 
+``build_dense_tlas`` builds its BLASes in worker processes once a table is
+large (``_blas_workers``): one BLAS does not depend on another, each worker
+returns its meshes' nodes and leaf tables in their first C lanes
+(``_build_blas``), and the merge is the serial build's, so the tables come
+out byte for byte the same.
+
 ``hq=True`` builds the tree with the native SBVH builder
 (``bvh/native.py``, ``bvh/csrc/sbvh_builder.cpp``): spatial splits, so one
 triangle may sit in several leaf groups (each copy with its own prim id
@@ -63,21 +69,45 @@ package falls back silently to the binned core.
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
+import os
 import sys
+from concurrent.futures import ProcessPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
+from physically_based_ray_tracer_tpu_torch.utils.profiling import add_attrs
 
 BINS = 8
 LEAF_W = 128          # triangle slots per leaf group (the TPU lane count)
-GROUP_ROWS = 16       # rows per group in the flat groups array (10 used)
+GROUP_ROWS = 16       # rows per group in the flat groups array
+GROUP_USED = 10       # of which used: v0, e1, e2, prim; the rest are zero
 NODE_F = 16           # floats per node in nodes16
 INST_F = 16           # floats per instance in inst16
 RESTORE_ID = (1 << 22) - 1   # reserved instance id: ray-space restore pop
 ABSENT = -(1 << 30)          # child code of an absent slot (exact in f32)
+# the float codes are exact below 2^24: a triangle leaf's -(2*(8g + log2c) + 1)
+# for group indices below 2^20, an internal child's node index below 2^24
+MAX_GROUPS = 1 << 20
+MAX_NODES = 1 << 24
+# a two-level build of at least this many meshes and triangles builds its
+# BLASes in worker processes; below, a pool's start-up costs more than it saves
+PARALLEL_MIN_MESHES = 64
+PARALLEL_MIN_TRIS = 1 << 17
+TASKS_PER_WORKER = 8
+
+
+def _check_codes(n_nodes: int, n_groups: int) -> None:
+    """Refuses a table whose node codes would not be exact in float32."""
+    if n_groups > MAX_GROUPS:
+        raise ValueError(f"dense BVH of {n_groups} leaf groups: a triangle leaf's float32 "
+                         f"code is exact for at most {MAX_GROUPS} groups")
+    if n_nodes > MAX_NODES:
+        raise ValueError(f"dense BVH of {n_nodes} nodes: a child's float32 code is exact "
+                         f"for at most {MAX_NODES} nodes")
 
 
 def _tri_code(g: int, log2c: int) -> float:
@@ -288,32 +318,31 @@ def _build_core(tri: np.ndarray, leaf_target: int):
             return s + (e - s) // 2 if (e - s) > LEAF_W else None
         scale = np.where(ext > 1e-12, BINS * 0.9999 / np.where(ext > 0, ext, 1.0), 0.0)
         bin_id = np.clip(((c - cmin) * scale).astype(np.int32), 0, BINS - 1)
-        best = (np.inf, -1, -1)
-        for ax in range(3):
-            if ext[ax] <= 1e-12:
-                continue
-            ids = bin_id[:, ax]
-            counts = np.bincount(ids, minlength=BINS)
-            bb_min = np.full((BINS, 3), np.inf, np.float32)
-            bb_max = np.full((BINS, 3), -np.inf, np.float32)
-            np.minimum.at(bb_min, ids, bmin[seg])
-            np.maximum.at(bb_max, ids, bmax[seg])
-            lmin = np.minimum.accumulate(bb_min, axis=0)
-            lmax = np.maximum.accumulate(bb_max, axis=0)
-            rmin = np.minimum.accumulate(bb_min[::-1], axis=0)[::-1]
-            rmax = np.maximum.accumulate(bb_max[::-1], axis=0)[::-1]
-            lcnt = np.cumsum(counts)
-            rcnt = np.cumsum(counts[::-1])[::-1]
-            la = _surface_area(lmin[:-1], lmax[:-1])
-            ra = _surface_area(rmin[1:], rmax[1:])
-            cost = la * lcnt[:-1] + ra * rcnt[1:]
-            cost = np.where((lcnt[:-1] == 0) | (rcnt[1:] == 0), np.inf, cost)
-            b = int(np.argmin(cost))
-            if cost[b] < best[0]:
-                best = (float(cost[b]), ax, b)
-        if best[1] < 0:
+        # the three axes at once: bin b of axis a is row a * BINS + b
+        keys = (bin_id + np.arange(0, 3 * BINS, BINS, dtype=np.int32)).reshape(-1)
+        counts = np.bincount(keys, minlength=3 * BINS).reshape(3, BINS)
+        bb_min = np.full((3 * BINS, 3), np.inf, np.float32)
+        bb_max = np.full((3 * BINS, 3), -np.inf, np.float32)
+        np.minimum.at(bb_min, keys, np.repeat(bmin[seg], 3, axis=0))
+        np.maximum.at(bb_max, keys, np.repeat(bmax[seg], 3, axis=0))
+        bb_min = bb_min.reshape(3, BINS, 3)
+        bb_max = bb_max.reshape(3, BINS, 3)
+        lmin = np.minimum.accumulate(bb_min, axis=1)
+        lmax = np.maximum.accumulate(bb_max, axis=1)
+        rmin = np.minimum.accumulate(bb_min[:, ::-1], axis=1)[:, ::-1]
+        rmax = np.maximum.accumulate(bb_max[:, ::-1], axis=1)[:, ::-1]
+        lcnt = np.cumsum(counts, axis=1)
+        rcnt = np.cumsum(counts[:, ::-1], axis=1)[:, ::-1]
+        la = _surface_area(lmin[:, :-1], lmax[:, :-1])
+        ra = _surface_area(rmin[:, 1:], rmax[:, 1:])
+        cost = la * lcnt[:, :-1] + ra * rcnt[:, 1:]
+        cost = np.where((lcnt[:, :-1] == 0) | (rcnt[:, 1:] == 0) | (ext <= 1e-12)[:, None],
+                        np.inf, cost)
+        # the first axis, then the first bin, of the least finite cost
+        k = int(np.argmin(cost))
+        if not cost.flat[k] < np.inf:
             return s + (e - s) // 2 if (e - s) > LEAF_W else None
-        ax, b = best[1], best[2]
+        ax, b = divmod(k, BINS - 1)
         go_left = bin_id[:, ax] <= b
         left = seg[go_left]
         right = seg[~go_left]
@@ -405,6 +434,7 @@ _NO_INST = np.zeros((1,), np.float32)
 # to 32 rows.
 BF_BANDS = 2
 BF_ROWS = 32
+BF_USED = 9 * BF_BANDS
 
 
 def _group_period(pid_row: np.ndarray) -> int:
@@ -620,8 +650,12 @@ def shape_dense_leaves(tri: np.ndarray, nodes: np.ndarray,
     out_nodes: list[np.ndarray] = []
 
     def subtree_bounds(nd):
+        """The box of ``nd``'s triangles, kept in ``nd`` once found."""
+        if "box" in nd:
+            return nd["box"]
         if nd["kind"] == "leaf":
-            return seg_bounds(nd["seg"])
+            nd["box"] = seg_bounds(nd["seg"])
+            return nd["box"]
         if nd["kind"] == "inst":
             raise AssertionError("shape_dense_leaves runs on single BLAS trees")
         los, his = [], []
@@ -631,7 +665,8 @@ def shape_dense_leaves(tri: np.ndarray, nodes: np.ndarray,
                 lo, hi = subtree_bounds(ch)
                 los.append(lo)
                 his.append(hi)
-        return np.min(los, axis=0), np.max(his, axis=0)
+        nd["box"] = np.min(los, axis=0), np.max(his, axis=0)
+        return nd["box"]
 
     def emit(nd):
         """Returns the child code for nd, emitting nodes as needed."""
@@ -749,6 +784,7 @@ def build_dense(triangles: np.ndarray, leaf_target: int = 64,
         tri = tri.reshape(-1, 3, 3)
     nodes, segments, depth, root_lo, root_hi = _build_core_any(
         tri, leaf_target, hq, shape)
+    _check_codes(nodes.shape[0], len(segments))
     groups = _pack_groups(tri, segments)
     gbf, glo, pids_c = _pack_groups_bf(groups)
     dbvh = DenseBVH.from_numpy(nodes.reshape(-1), groups, _NO_INST,
@@ -836,35 +872,88 @@ def _inst_rows(inst_mesh, transforms, blas_root):
     return inst16
 
 
+def _build_blas(tri, leaf_target: int, hq: bool, shape: bool):
+    """One mesh's BLAS and leaf tables: (nodes, depth, stack need from its
+    root, root lo, root hi, glo, pids_c as (G, C), the groups' used rows and
+    ``groups_bf``'s (as int16 bits), each in its first C lanes). C is the
+    mesh's largest group period; every row of a group repeats with the
+    group's period, which divides C, so tiling the C lanes gives the 128
+    (``_expand``); at C = 16 a worker sends 1/13 of the table's bytes."""
+    tri = np.asarray(tri, np.float32)
+    if tri.ndim == 2:
+        tri = tri.reshape(-1, 3, 3)
+    nodes, segments, dep, rlo, rhi = _build_core_any(tri, leaf_target, hq, shape)
+    groups = _pack_groups(tri, segments)
+    gbf, glo, pids_c = _pack_groups_bf(groups)
+    G = groups.shape[0] // GROUP_ROWS
+    C = pids_c.shape[0] // G
+    rows = groups.reshape(G, GROUP_ROWS, LEAF_W)[:, :GROUP_USED, :C]
+    bf_rows = gbf.view(torch.int16).numpy().reshape(G, BF_ROWS, LEAF_W)[:, :BF_USED, :C]
+    return (nodes, dep, _walk_need(nodes, 0), rlo, rhi, glo, pids_c.reshape(G, C),
+            rows.copy(), bf_rows.copy())
+
+
+def _expand(out: np.ndarray, start: int, rows: np.ndarray) -> None:
+    """Writes a mesh's (G, R, C) compact rows, tiled to 128 lanes, into
+    rows 0..R-1 of groups ``start``.. of ``out`` (n, rows, 128)."""
+    out[start:start + rows.shape[0], :rows.shape[1]] = np.tile(
+        rows, (1, 1, LEAF_W // rows.shape[2]))
+
+
+def _blas_workers(mesh_tris: list) -> int:
+    """Worker processes for the BLAS builds of ``mesh_tris``: the cores this
+    process may run on, or 0 (build here) below PARALLEL_MIN_MESHES meshes
+    or PARALLEL_MIN_TRIS triangles."""
+    tris = sum(np.asarray(t).size // 9 for t in mesh_tris)
+    if len(mesh_tris) < PARALLEL_MIN_MESHES or tris < PARALLEL_MIN_TRIS:
+        return 0
+    n = min(len(os.sched_getaffinity(0)), len(mesh_tris))
+    return n if n > 1 else 0
+
+
+def _build_blases(mesh_tris: list, leaf_target: int, hq: bool, shape: bool,
+                  workers: int) -> list:
+    """``_build_blas`` of every mesh, in order: here, or in ``workers``
+    spawned processes (never forked: the caller may hold a CUDA context) of
+    one torch thread each (the workers fill the cores), each task a run of
+    consecutive meshes. As with any spawned pool, a script that builds such
+    a table keeps its work under ``if __name__ == "__main__":``."""
+    args = [mesh_tris] + [[x] * len(mesh_tris) for x in (leaf_target, hq, shape)]
+    if not workers:
+        return list(map(_build_blas, *args))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(1,)) as pool:
+        run = -(-len(mesh_tris) // (workers * TASKS_PER_WORKER))
+        return list(pool.map(_build_blas, *args, chunksize=run))
+
+
 def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
                      leaf_target: int = 64, hq: bool = False,
-                     shape: bool = False,
+                     shape: bool = False, workers: int | str = "auto",
                      ) -> tuple[DenseBVH, TLASMeta, int]:
     """Two-level build: one shared BLAS per mesh + TLAS over instances.
 
     mesh_tris: per-mesh (T, 3, 3) object-space triangles; inst_mesh: (I,)
     mesh index per instance; transforms: (I, 4, 4) world-from-object.
-    hq=True builds each BLAS with the native SBVH core. Returns (DenseBVH,
-    TLASMeta, depth)."""
+    hq=True builds each BLAS with the native SBVH core. ``workers``: the
+    processes that build the BLASes, 0 to build them here, "auto" for
+    ``_blas_workers`` (workers for large tables only); the count goes to the
+    innermost open span as ``workers``. Returns (DenseBVH, TLASMeta,
+    depth)."""
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
     I = len(inst_mesh)
     B = len(mesh_tris)
     tlas_cap = max(I - 1, 1)
 
-    blas_nodes, blas_groups, blas_lo, blas_hi = [], [], [], []
-    depth_blas = 1
-    for tri in mesh_tris:
-        tri = np.asarray(tri, np.float32)
-        if tri.ndim == 2:
-            tri = tri.reshape(-1, 3, 3)
-        nodes, segments, dep, rlo, rhi = _build_core_any(tri, leaf_target, hq,
-                                                         shape)
-        blas_nodes.append(nodes)
-        blas_groups.append(_pack_groups(tri, segments))
-        blas_lo.append(rlo)
-        blas_hi.append(rhi)
-        depth_blas = max(depth_blas, dep)
+    if workers == "auto":
+        workers = _blas_workers(mesh_tris)
+    elif isinstance(workers, str) or workers < 0:
+        raise ValueError(f"workers must be a count >= 0 or 'auto', not {workers!r}")
+    add_attrs(workers=workers)
+    (blas_nodes, blas_depth, blas_need, blas_lo, blas_hi, blas_glo, blas_pids, blas_rows,
+     blas_bf) = map(list, zip(*_build_blases(mesh_tris, leaf_target, hq, shape, workers)))
+    depth_blas = max([1] + blas_depth)
     blas_lo = np.stack(blas_lo)
     blas_hi = np.stack(blas_hi)
 
@@ -876,7 +965,8 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
         node_off[b] = n
         group_off[b] = g
         n += blas_nodes[b].shape[0]
-        g += blas_groups[b].shape[0] // GROUP_ROWS
+        g += blas_pids[b].shape[0]
+    _check_codes(n, g)
 
     merged = []
     for b in range(B):
@@ -899,7 +989,15 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
     tlas = _build_tlas_nodes(lo, hi, tlas_cap)
 
     all_nodes = np.concatenate([tlas] + merged, axis=0)
-    all_groups = np.concatenate(blas_groups, axis=0)
+    all_groups = np.zeros((g, GROUP_ROWS, LEAF_W), np.float32)
+    gbf = np.zeros((g, BF_ROWS, LEAF_W), np.int16)
+    for b in range(B):
+        _expand(all_groups, group_off[b], blas_rows[b])
+        _expand(gbf, group_off[b], blas_bf[b])
+    del blas_rows, blas_bf
+    C = max(p.shape[1] for p in blas_pids)
+    pids_c = np.concatenate([np.pad(p, ((0, 0), (0, C - p.shape[1])), constant_values=-1.0)
+                             for p in blas_pids]).reshape(-1)
 
     counts = np.array([mesh_tris[m].reshape(-1, 3, 3).shape[0]
                        if np.asarray(mesh_tris[m]).ndim == 3
@@ -909,15 +1007,13 @@ def build_dense_tlas(mesh_tris: list[np.ndarray], inst_mesh, transforms,
 
     meta = TLASMeta(tlas_cap=tlas_cap, inst_mesh=inst_mesh,
                     blas_root=node_off.copy(), blas_lo=blas_lo,
-                    blas_hi=blas_hi,
-                    blas_need=np.array([_walk_need(all_nodes, int(r)) for r in node_off],
-                                       np.int64))
-    gbf, glo, pids_c = _pack_groups_bf(all_groups)
-    dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups,
+                    blas_hi=blas_hi, blas_need=np.array(blas_need, np.int64))
+    dbvh = DenseBVH.from_numpy(all_nodes.reshape(-1), all_groups.reshape(-1, LEAF_W),
                                inst16.reshape(-1), prim_base,
                                lo.min(axis=0), hi.max(axis=0),
-                               groups_bf=gbf, glo=glo, pids_c=pids_c,
-                               device="cpu")   # host tables; the scene moves them
+                               groups_bf=torch.from_numpy(gbf.reshape(-1, LEAF_W)).view(torch.bfloat16),
+                               glo=np.concatenate(blas_glo),
+                               pids_c=pids_c, device="cpu")   # host tables; the scene moves them
     depth = tlas_cap.bit_length() + depth_blas + 2
     return dbvh, meta, depth
 

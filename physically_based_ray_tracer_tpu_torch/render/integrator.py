@@ -68,6 +68,8 @@ pass a ``pbrt.occlusion`` span; the sub-tile gates read the device through
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from physically_based_ray_tracer_tpu_torch.bvh.dense import BF_ROWS
@@ -138,6 +140,19 @@ def _use_bf16(cfg: RenderConfig, dense) -> bool:
     if not trace_bf16.has_bf16_tables(dense):
         return False
     return dense.groups_bf.shape[0] // BF_ROWS <= trace_bf16.GLO_SMEM_LIMIT
+
+
+def table_bytes(scene, cfg: RenderConfig) -> int:
+    """Bytes of the tables the traversal engine of ``cfg`` reads on
+    ``scene``: B1 and B3 the dense nodes, instance rows and leaf records; B2
+    those (B1 retests its uncertain lanes) and its group boxes, prim ids and
+    band pairs; the classic-BVH engines the classic tree's arrays."""
+    if cfg.traversal in ("wave", "packet", "lane"):
+        return sum(getattr(scene.bvh, f.name).nbytes for f in dataclasses.fields(scene.bvh))
+    names = ["nodes16", "inst16", "leaf_rec"]
+    if cfg.traversal == "pallas" and _use_bf16(cfg, scene.dense):
+        names += ["glo", "pids_c", "groups_bf2"]
+    return sum(getattr(scene.dense, n).nbytes for n in names)
 
 
 def _closest(scene, cfg: RenderConfig, o, d, t_max=None, sort=False,

@@ -22,7 +22,7 @@ from physically_based_ray_tracer_tpu_torch.ops.tonemap import POST_PRESETS, post
 from physically_based_ray_tracer_tpu_torch.render import film as film_mod
 from physically_based_ray_tracer_tpu_torch.render.graph import ChunkGraph, graph_path
 from physically_based_ray_tracer_tpu_torch.render.integrator import (
-    check_supported, render_sample)
+    check_supported, render_sample, table_bytes)
 from physically_based_ray_tracer_tpu_torch.scene.scene import rebuild_scene
 from physically_based_ray_tracer_tpu_torch.utils import image as image_utils
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
@@ -206,8 +206,10 @@ class Renderer:
         """The frame's (color, primary t): the recorded chunk replayed where
         ``graph_path`` allows (recorded first where there is no recording
         that takes this scene, camera and config), else ``render_chunked``;
-        the counts go to the tick's span."""
+        the counts, and the bytes of the tables the traversal reads, go to
+        the tick's span."""
         cfg, b = self.config, self._pixel_ids.shape[0]
+        add_attrs(table_bytes=table_bytes(self.scene, cfg))
         if not graph_path(cfg, self.device):
             self._graph = None
             add_attrs(chunks=-(-b // cfg.chunk_pixels), replays=0, captures=0, refreshed=0)

@@ -40,7 +40,7 @@ from physically_based_ray_tracer_tpu_torch.scene.lights import LightSet
 from physically_based_ray_tracer_tpu_torch.utils.device import DEFAULT_DEVICE, resolve
 from physically_based_ray_tracer_tpu_torch.utils.math import (
     compose_trs, inverse_transpose_3x3, transform_points)
-from physically_based_ray_tracer_tpu_torch.utils.profiling import add_attrs
+from physically_based_ray_tracer_tpu_torch.utils.profiling import add_attrs, annotate
 
 
 @dataclass
@@ -262,8 +262,10 @@ def build_scene(models: list[MeshModel], instances: list[Instance],
 # build the same tables. The thresholds are TPU-derived: SMEM_NODE_LIMIT
 # (192 KB of scalar memory for the node table) and VMEM_GROUP_LIMIT (10.5 MB
 # of vector memory for the leaf groups) bound what the TPU kernel keeps in
-# fast memory. A GPU has no such tiers (the whole bench table fits its L2);
-# fitting the policy to the GPU kernel is later perf work.
+# fast memory. A GPU has no such tiers: the bench table fits its 50 MB L2,
+# the SPD sphereflake's (benchmark configuration spd_balls_sf4_512, 7,382
+# meshes, ~340 MB read by B1) does not; fitting the policy to the GPU kernel
+# is later perf work.
 FLATTEN_MAX_INSTANCES = 128
 FLATTEN_MAX_TRIS = 1 << 18
 SMEM_NODE_LIMIT = 3072
@@ -364,6 +366,7 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
                           dense_shape: bool = True,
                           legacy_bvh: bool = True,
                           flatten: bool | str = False,
+                          blas_workers: int | str = "auto",
                           device=DEFAULT_DEVICE,
                           ) -> tuple[SceneData, InstancedScene, int]:
     """Two-level build: shared BLAS per model + TLAS over instances.
@@ -378,6 +381,15 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
     tables pass the fast-memory check; True forces flattening
     (``rebuild_scene`` then rebuilds the dense table on motion).
 
+    ``blas_workers``: the processes that build the two-level table's
+    BLASes (``build_dense_tlas``'s ``workers``): "auto" spawns one a core
+    for large tables only, 0 builds them in this process.
+
+    The dense tables are built in a ``pbrt.build`` span (attributes
+    ``blas``: the BLASes, 0 when flattened; ``tris``: the triangles in the
+    tables; ``groups``: their leaf groups; ``workers``: the processes that
+    built the BLASes, 0 when built here).
+
     Returns (scene_data, instanced_handle, depth): the larger of the dense
     and the classic tree's depth, as in the JAX package."""
     device = resolve(device)
@@ -386,20 +398,24 @@ def build_scene_instanced(models: list[MeshModel], instances: list[Instance],
         flatten == "auto" and len(instances) <= FLATTEN_MAX_INSTANCES
         and baked["tri"].shape[0] <= FLATTEN_MAX_TRIS)
     meta = None
-    if do_flatten:
-        dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
-                                   shape=dense_shape)
-        if flatten == "auto" and not _dense_fits_fast_memory(dense):
-            do_flatten = False
-    if not do_flatten:
-        mesh_tris = [m.corners.reshape(-1, 3, 3).astype(np.float32)
-                     for m in models]
-        inst_mesh = np.array([i.model for i in instances], np.int64)
-        transforms = np.stack([i.transform
-                               for i in instances]).astype(np.float32)
-        dense, meta, depth = build_dense_tlas(mesh_tris, inst_mesh, transforms,
-                                              leaf_target=dense_leaf_target,
-                                              shape=dense_shape)
+    with annotate("pbrt.build", workers=0):
+        if do_flatten:
+            dense, depth = build_dense(baked["tri"], leaf_target=dense_leaf_target,
+                                       shape=dense_shape)
+            if flatten == "auto" and not _dense_fits_fast_memory(dense):
+                do_flatten = False
+        if not do_flatten:
+            mesh_tris = [m.corners.reshape(-1, 3, 3).astype(np.float32)
+                         for m in models]
+            inst_mesh = np.array([i.model for i in instances], np.int64)
+            transforms = np.stack([i.transform
+                                   for i in instances]).astype(np.float32)
+            dense, meta, depth = build_dense_tlas(mesh_tris, inst_mesh, transforms,
+                                                  leaf_target=dense_leaf_target,
+                                                  shape=dense_shape, workers=blas_workers)
+        add_attrs(blas=0 if meta is None else len(models),
+                  tris=baked["tri"].shape[0] if meta is None else sum(m.n_tris for m in models),
+                  groups=dense.n_groups)
     bvh = None
     if legacy_bvh:
         bvh = build_bvh(baked["tri"], leaf_size=leaf_size)
